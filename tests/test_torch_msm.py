@@ -1,0 +1,166 @@
+"""zkrollup_torch MSM (chunked scan) against zkrollup.msm (JAX) and the
+native engine: digits and table packing limb for limb, the fused 4-table G1
+window sums at c = 8 as affine points against msm._multi_window_sums, and
+final G1/G2 MSMs against engine.g1_msm_pip / g2_msm_pip.
+
+Window sums are compared as affine points: the two packages sum the same
+points in different orders, so their Jacobian representatives differ.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from zkrollup.curve import g1_jax
+from zkrollup.msm import msm as jmsm
+from zkrollup.native import engine
+from zkrollup.ref.bn254 import R as FR_MOD
+from zkrollup_torch.curve import g1, g2
+from zkrollup_torch.fields import limbs as L
+from zkrollup_torch.fields.mont import FQ
+from zkrollup_torch.msm import msm
+from zkrollup_torch.msm.glv import (combine_multi_window_sums_host,
+                                    combine_window_sums_host_g2)
+
+# One intra-op thread per process: the suite runs in several worker
+# processes, whose torch thread pools would otherwise fight for the cores.
+torch.set_num_threads(1)
+
+C = 8
+SIZES = (256, 70, 33, 97)     # the largest table keeps c = 8 unclamped
+
+
+def _scalars(n, seed):
+    """Mostly full-width scalars, with the skew of real witnesses: zeros,
+    ones and small values."""
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % FR_MOD
+            for row in words]
+    for i in range(0, n, 5):
+        vals[i] = int(rng.randint(0, 3))
+    return vals
+
+
+def _tables(seed):
+    """Four G1 tables of distinct points; table 1 shares points with
+    table 0, as the a and b1 tables of a real key do."""
+    ks = random.Random(seed).sample(range(1, 1 << 30), sum(SIZES))
+    ks[256:266] = ks[0:10]
+    x, y, inf = engine.g1_fixed_base_mont(engine.ints_to_fr_bytes(ks),
+                                          len(ks))
+    x[300:302] = 0                 # two infinity rows
+    y[300:302] = 0
+    inf[300:302] = True
+    out, s = [], 0
+    for n in SIZES:
+        out.append((x[s:s + n], y[s:s + n], inf[s:s + n]))
+        s += n
+    return out
+
+
+@pytest.fixture(scope="module")
+def problem():
+    tables = _tables(1)
+    scalars = [_scalars(n, 10 + t) for t, n in enumerate(SIZES)]
+    return tables, scalars
+
+
+def _affine_grid(wsum):
+    """(W, T, 16) Montgomery Jacobian leaves -> [[affine]] by window."""
+    leaves = [np.asarray(a) for a in wsum]
+    W, T = leaves[0].shape[:2]
+    flat = g1.to_affine_host([a.reshape(-1, 16) for a in leaves])
+    return [flat[w * T:(w + 1) * T] for w in range(W)]
+
+
+def test_window_digits_match_jax():
+    sc = L.ints_to_limbs(_scalars(40, 3) + [(1 << 254) - 1])
+    for c, w in ((8, 32), (12, 22), (5, 52)):
+        got = msm.window_digits(torch.from_numpy(sc.astype(np.int32)), c, w)
+        want = jmsm.window_digits(jnp.asarray(sc), c, w)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pack_tables_matches_jax(problem):
+    tables, _ = problem
+    (x, y, inf), bounds = msm.pack_tables(tables)
+    (jx, jy, jinf), jbounds = jmsm.pack_tables(tables)
+    assert bounds == jbounds
+    assert np.array_equal(x, np.asarray(jx))
+    assert np.array_equal(y, np.asarray(jy))
+    assert np.array_equal(inf, np.asarray(jinf))
+
+
+@pytest.fixture(scope="module")
+def jax_window_sums(problem):
+    tables, scalars = problem
+    pts, bounds = jmsm.pack_tables(tables)
+    sc = np.zeros((pts[0].shape[0], 16), np.uint32)
+    for (s, n), vals in zip(bounds, scalars):
+        sc[s:s + n] = L.ints_to_limbs(vals)
+    wsum, c = jmsm._multi_window_sums_jit(g1_jax.G1)(
+        tuple(pts), jnp.asarray(sc), c=C, bounds=tuple(bounds),
+        distinct=True)
+    return _affine_grid(wsum), c
+
+
+def _port_window_sums(problem, chunk):
+    tables, scalars = problem
+    (x, y, inf), bounds = msm.pack_tables(tables, chunk=chunk)
+    sc = np.zeros((x.shape[0], 16), np.uint32)
+    for (s, n), vals in zip(bounds, scalars):
+        sc[s:s + n] = L.ints_to_limbs(vals)
+    pts = (L.to_device(x, "cpu"), L.to_device(y, "cpu"),
+           torch.from_numpy(inf))
+    return msm.multi_window_sums(g1.G1, pts, L.to_device(sc, "cpu"), C,
+                                 bounds, distinct=True, chunk=chunk)
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+def test_multi_window_sums_match_jax(problem, jax_window_sums, chunk):
+    """chunk 128 is the reference's; 16 runs a multi-level Blelloch scan
+    over chunk totals."""
+    wsum, c = _port_window_sums(problem, chunk)
+    want, jc = jax_window_sums
+    assert c == jc == C
+    assert _affine_grid([a.numpy().astype(np.uint32) for a in wsum]) == want
+
+
+def test_g1_msms_match_native_engine(problem):
+    tables, scalars = problem
+    wsum, c = _port_window_sums(problem, 64)
+    std = tuple(FQ.from_mont(a) for a in wsum)
+    got = combine_multi_window_sums_host(std, c)
+    want = [engine.g1_msm_pip(engine.pack_g1_table_mont(t),
+                              engine.ints_to_fr_bytes(s), len(s))
+            for t, s in zip(tables, scalars)]
+    assert got == want
+
+
+def test_g2_msm_matches_native_engine():
+    n = 40
+    ks = random.Random(5).sample(range(1, 1 << 30), n)
+    (x0, x1), (y0, y1), inf = engine.g2_fixed_base_mont(
+        engine.ints_to_fr_bytes(ks), n)
+    sc = _scalars(n, 6)
+    d = lambda a: L.to_device(a, "cpu")
+    pts = ((d(x0), d(x1)), (d(y0), d(y1)), torch.from_numpy(inf))
+    wsum, c = msm.window_sums(g2.G2, pts, d(L.ints_to_limbs(sc)), c=4,
+                              distinct=True, chunk=16)
+    assert c == 4
+    std = tuple((FQ.from_mont(a[0]), FQ.from_mont(a[1])) for a in wsum)
+    got = combine_window_sums_host_g2(std, c)
+    want = engine.g2_msm_pip(engine.pack_g2_table_mont(((x0, x1), (y0, y1),
+                                                        inf)),
+                             engine.ints_to_fr_bytes(sc), n)
+    assert got == want
+
+
+def test_clamp_window_matches_jax():
+    for c, n in ((12, 1 << 17), (12, 300), (8, 40), (3, 2)):
+        assert msm._clamp_window(c, n) == jmsm._clamp_window(c, n)

@@ -1,0 +1,8 @@
+"""zkrollup_torch: the BN254 Groth16 rollup prover on PyTorch and CUDA.
+
+The port of the `zkrollup` package (JAX/Pallas on a TPU) to PyTorch with
+hand-written CUDA kernels for Hopper. `zkrollup` stays the reference: each
+module here names its counterpart there. The package imports torch, never
+jax; from `zkrollup` it uses only the modules that import no jax (ref, r1cs,
+witness.assembler, tree.merkle, config, native.engine).
+"""

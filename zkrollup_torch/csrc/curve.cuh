@@ -1,0 +1,126 @@
+// Jacobian point formulas over Fq (G1) or Fq2 (G2) for the zkrollup_torch
+// CUDA kernels: one lane = one point pair, branch-free.
+//
+// Replace the point kernels of zkrollup/curve/pallas_curve.py (_add_kernel,
+// _make_madd_kernel(True), _k_double_point) and their Fq2 instantiations in
+// zkrollup/curve/pallas_curve_g2.py. The lane functions are host/device so
+// the formulas compile for a CPU as well as for the GPU.
+#pragma once
+
+#include <cstdint>
+
+#include "field.cuh"
+
+namespace zkt {
+
+struct PointArgs {
+  const int32_t* in[12];  // X1 Y1 Z1 X2 Y2 Z2, K planes each
+  int32_t* out[6];        // X3 Y3 Z3, K planes each
+};
+
+// dbl-2007-bl for a = 0 (pallas_curve.py:_k_double_point)
+template <class E>
+ZKT_HD void jac_double(E& X3, E& Y3, E& Z3, const E& X, const E& Y,
+                       const E& Z) {
+  E A = E::sqr(X);
+  E B = E::sqr(Y);
+  E C = E::sqr(B);
+  E t = E::sqr(E::add(X, B));
+  E D = E::dbl(E::sub(E::sub(t, A), C));
+  E Ee = E::add(E::dbl(A), A);
+  E F2 = E::sqr(Ee);
+  X3 = E::sub(F2, E::dbl(D));
+  E C8 = E::dbl(E::dbl(E::dbl(C)));
+  Y3 = E::sub(E::mul(Ee, E::sub(D, X3)), C8);
+  Z3 = E::mul(E::dbl(Y), Z);
+}
+
+// Unified Jacobian add with the doubling path and the infinity and P + (-P)
+// masks, branch-free (pallas_curve.py:_add_kernel). Infinity is Z = 0; on
+// P + (-P) only Z is zeroed, as in the Pallas kernel.
+template <class E>
+ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i) {
+  using P = Planes<E>;
+  constexpr int K = P::K;
+  const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
+          Z1 = P::load(args.in + 2 * K, i);
+  const E X2 = P::load(args.in + 3 * K, i), Y2 = P::load(args.in + 4 * K, i),
+          Z2 = P::load(args.in + 5 * K, i);
+
+  E Z1Z1 = E::sqr(Z1);
+  E Z2Z2 = E::sqr(Z2);
+  E U1 = E::mul(X1, Z2Z2);
+  E U2 = E::mul(X2, Z1Z1);
+  E S1 = E::mul(E::mul(Y1, Z2), Z2Z2);
+  E S2 = E::mul(E::mul(Y2, Z1), Z1Z1);
+  E H = E::sub(U2, U1);
+  E R = E::sub(S2, S1);
+  E HH = E::sqr(H);
+  E HHH = E::mul(H, HH);
+  E V = E::mul(U1, HH);
+  E X3 = E::sub(E::sub(E::sqr(R), HHH), E::dbl(V));
+  E Y3 = E::sub(E::mul(R, E::sub(V, X3)), E::mul(S1, HHH));
+  E Z3 = E::mul(E::mul(Z1, Z2), H);
+
+  const bool h_zero = H.is_zero(), r_zero = R.is_zero();
+  const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
+  const bool same = h_zero && r_zero;
+  {
+    E dX, dY, dZ;
+    jac_double(dX, dY, dZ, X1, Y1, Z1);
+    X3 = E::select(same, dX, X3);
+    Y3 = E::select(same, dY, Y3);
+    Z3 = E::select(same, dZ, Z3);
+  }
+  const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
+  Z3 = E::select(to_inf, E::zero(), Z3);
+  X3 = E::select(p_inf, X2, X3);
+  Y3 = E::select(p_inf, Y2, Y3);
+  Z3 = E::select(p_inf, Z2, Z3);
+  X3 = E::select(q_inf, X1, X3);
+  Y3 = E::select(q_inf, Y1, Y3);
+  Z3 = E::select(q_inf, Z1, Z3);
+  P::store(args.out + 0 * K, i, X3);
+  P::store(args.out + 1 * K, i, Y3);
+  P::store(args.out + 2 * K, i, Z3);
+}
+
+// Mixed add P (Jacobian) + Q (Z2 in {0, 1}: affine or infinity), madd-2007-bl
+// with NO doubling path (pallas_curve.py:_make_madd_kernel(True)). Wrong when
+// P == Q: callers use it only where the operands are distinct points.
+template <class E>
+ZKT_HD void jac_madd_nd_lane(const PointArgs& args, int64_t i) {
+  using P = Planes<E>;
+  constexpr int K = P::K;
+  const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
+          Z1 = P::load(args.in + 2 * K, i);
+  const E x2 = P::load(args.in + 3 * K, i), y2 = P::load(args.in + 4 * K, i),
+          Z2 = P::load(args.in + 5 * K, i);
+
+  E Z1Z1 = E::sqr(Z1);
+  E U2 = E::mul(x2, Z1Z1);
+  E S2 = E::mul(E::mul(y2, Z1), Z1Z1);
+  E H = E::sub(U2, X1);
+  E R = E::sub(S2, Y1);
+  E HH = E::sqr(H);
+  E HHH = E::mul(H, HH);
+  E V = E::mul(X1, HH);
+  E X3 = E::sub(E::sub(E::sqr(R), HHH), E::dbl(V));
+  E Y3 = E::sub(E::mul(R, E::sub(V, X3)), E::mul(Y1, HHH));
+  E Z3 = E::mul(Z1, H);
+
+  const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
+  const bool to_inf = H.is_zero() && !p_inf && !q_inf;
+  Z3 = E::select(to_inf, E::zero(), Z3);
+  X3 = E::select(p_inf, x2, X3);
+  Y3 = E::select(p_inf, y2, Y3);
+  Z3 = E::select(p_inf, Z2, Z3);
+  X3 = E::select(q_inf, X1, X3);
+  Y3 = E::select(q_inf, Y1, Y3);
+  Z3 = E::select(q_inf, Z1, Z3);
+  P::store(args.out + 0 * K, i, X3);
+  P::store(args.out + 1 * K, i, Y3);
+  P::store(args.out + 2 * K, i, Z3);
+}
+
+}  // namespace zkt
