@@ -1,12 +1,14 @@
 """zkrollup_torch's CUDA kernels on the card.
 
 Each kernel wrapper against its plain PyTorch version on the same CUDA
-tensors, bit for bit; the NTT and the MSM window sums on the card against
-the same functions on the CPU; and the BatchProcessTx(2,6) proof against
-the native engine. Every test needs a CUDA device and skips without one.
+tensors, bit for bit; the NTT, the MSM window sums and the general MSM on
+the card against the same functions on the CPU; a small setup on the card
+against the native engine's; and the BatchProcessTx(2,6) proof against the
+native engine. Every test needs a CUDA device and skips without one.
 
-The file imports no JAX, so it runs where JAX is not installed, as on the
-machine with the card (tests/conftest.py imports JAX, hence --noconftest):
+The file imports neither JAX nor the zkrollup package, so it runs where JAX
+is not installed, as on the machine with the card (tests/conftest.py
+imports JAX, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -17,13 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from zkrollup.native import engine
-from zkrollup.ref import bn254 as ref
 from zkrollup_torch.curve import cuda_curve, g1, g2
 from zkrollup_torch.fields import cuda_mont, limbs as L
 from zkrollup_torch.fields.mont import FR, FQ
 from zkrollup_torch.msm import msm
+from zkrollup_torch.native import engine
 from zkrollup_torch.ntt import ntt
+from zkrollup_torch.ref import bn254 as ref
 
 N = 64
 CURVES = {
@@ -120,6 +122,22 @@ def test_point_kernels_match_plain(cuda_device, name):
     got, want = (curve.leaves(f(curve, p, q))
                  for f in (cuda_curve.add, cuda_curve.add_plain))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the mixed add with the doubling path: every lane, P + P included
+    got, want = (curve.leaves(f(curve, p, q))
+                 for f in (cuda_curve.madd, cuda_curve.madd_plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the double, of p (Z != 1, lanes 2 and 4 infinity) and of q (Z = 1)
+    for pt in (p, q):
+        got, want = (curve.leaves(f(curve, pt))
+                     for f in (cuda_curve.double, cuda_curve.double_plain))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the double on one lane, as the MSM's Horner launches it: infinity
+    # (lane 2) and a finite point (lane 5)
+    for k in (2, 5):
+        one = curve.map(lambda a: a[k:k + 1].contiguous(), p)
+        got, want = (curve.leaves(f(curve, one))
+                     for f in (cuda_curve.double, cuda_curve.double_plain))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     # the no-double add: every lane but P + P (its contract)
     p, q = (curve.map(lambda a: a[1:].contiguous(), t) for t in (p, q))
     got, want = (curve.leaves(f(curve, p, q))
@@ -159,18 +177,84 @@ def test_window_sums_on_cuda_match_cpu(cuda_device):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
+def _dup_table(curve, n, seed):
+    """A table of n affine points with 8 duplicates and two infinity rows,
+    and its scalars, as tensors on the CPU."""
+    ks = random.Random(seed).sample(range(1, 1 << 30), n)
+    ks[n // 2:n // 2 + 8] = ks[:8]
+    if curve is g1.G1:
+        x, y, inf = engine.g1_fixed_base_mont(engine.ints_to_fr_bytes(ks), n)
+        planes = [x, y]
+    else:
+        (x0, x1), (y0, y1), inf = engine.g2_fixed_base_mont(
+            engine.ints_to_fr_bytes(ks), n)
+        planes = [x0, x1, y0, y1]
+    for a in planes:
+        a[3:5] = 0
+    inf[3:5] = True
+    t = [L.to_device(a, "cpu") for a in planes]
+    k = len(t) // 2
+    pts = (curve.F.from_leaves(t[:k]), curve.F.from_leaves(t[k:]),
+           torch.from_numpy(inf))
+    sc = L.to_device(L.ints_to_limbs(_values(FR.p, n, seed + 1)), "cpu")
+    return pts, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_general_msm_on_cuda_matches_cpu(cuda_device, name):
+    """msm(distinct=False) over a table with duplicate points: the madd
+    kernels in the scan leg, the double and add kernels in the Horner."""
+    curve = g1.G1 if name == "g1" else g2.G2
+    (x, y, inf), sc = _dup_table(curve, 200, 11)
+    on = lambda v: curve.F.from_leaves([a.to(cuda_device)
+                                        for a in curve.F.leaves(v)])
+    got = msm.msm(curve, (on(x), on(y), inf.to(cuda_device)),
+                  sc.to(cuda_device), c=6)
+    want = msm.msm(curve, (x, y, inf), sc, c=6)
+    assert all(torch.equal(a.cpu(), b)
+               for a, b in zip(curve.leaves(got), curve.leaves(want)))
+
+
+@pytest.mark.cuda
+def test_setup_on_cuda_equals_setup_host(cuda_device):
+    """A small circuit: the key made on the card equals the native
+    engine's byte for byte (tables, single points and verifying key)."""
+    from zkrollup_torch.groth16.setup import setup, setup_host
+    from zkrollup_torch.r1cs.builder import Builder
+    bld = Builder()
+    out = bld.alloc_output_deferred()
+    y = bld.alloc_public_input(5)
+    x = bld.alloc(3)
+    acc = x
+    for _ in range(40):
+        acc = bld.mul(acc, x)
+    bld.bind_output(out, acc + y)
+    got = setup(bld.r1cs(), seed=b"cuda-setup", device=cuda_device)
+    want = setup_host(bld.r1cs(), seed=b"cuda-setup")
+    for f in ("a_g1", "b1_g1", "c_g1", "h_g1", "b2_g2"):
+        flat = lambda t: [v for c in t for v in
+                          (c if isinstance(c, tuple) else (c,))]
+        assert all(u.dtype == v.dtype and u.tobytes() == v.tobytes()
+                   for u, v in zip(flat(getattr(got, f)),
+                                   flat(getattr(want, f)))), f
+    assert got.vk == want.vk
+    assert (got.alpha1, got.beta1, got.delta1, got.beta2, got.delta2) == \
+        (want.alpha1, want.beta1, want.delta1, want.beta2, want.delta2)
+
+
 @pytest.mark.slow
 @pytest.mark.cuda
 def test_tx_2_6_proof_on_cuda_equals_native_engine(cuda_device):
     """The production circuit: the duplicate points of the real key tables
     exercise the no-double kernels' distinct contract."""
-    from zkrollup.config import RollupConfig
-    from zkrollup.ref import eddsa
-    from zkrollup.tree.merkle import create_merkle_tree
-    from zkrollup.witness.assembler import (Transaction, format_tx,
-                                            hash_balance_tree_leaf)
+    from zkrollup_torch.config import RollupConfig
     from zkrollup_torch.groth16.prove import prove_host
     from zkrollup_torch.operator.prover import TxProver
+    from zkrollup_torch.ref import eddsa
+    from zkrollup_torch.tree.merkle import create_merkle_tree
+    from zkrollup_torch.witness.assembler import (Transaction, format_tx,
+                                                  hash_balance_tree_leaf)
     priv = 41516261718191101
     prover = TxProver(RollupConfig(), setup_seed=b"zkrollup-test-seed",
                       device=cuda_device)

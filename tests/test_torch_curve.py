@@ -1,11 +1,15 @@
-"""zkrollup_torch G1 point ops against zkrollup.curve (JAX): the unified add
-and the mixed add (no-double and safe) against the generic weierstrass G1
-formulas and, in the slow tier, against the Pallas kernels in interpret
-mode; every result also against zkrollup.ref affine arithmetic.
+"""zkrollup_torch G1 point ops against zkrollup.curve (JAX): the unified add,
+the double and the mixed add (no-double and safe) against the generic
+weierstrass G1 formulas and, in the slow tier, against the Pallas kernels
+in interpret mode; every result also against zkrollup.ref affine
+arithmetic. The plain versions of the double and the safe mixed add are
+held against zkrollup.ref for G1 and G2, limb for limb.
 
 Exactness: Jacobian limbs are equal wherever the result is a finite point,
 and Z is equal everywhere. On P + (-P) the Pallas kernels (and the port)
-zero only Z, where the generic JAX formula zeroes X and Y too.
+zero only Z, where the generic JAX formula zeroes X and Y too. On P + P the
+safe mixed add follows the Pallas kernel (the affine double of q, Z = 2 y2),
+where the generic JAX mixed_add doubles p: the same point, other limbs.
 """
 
 import numpy as np
@@ -14,9 +18,11 @@ import torch
 
 import jax.numpy as jnp
 
-from zkrollup.curve import g1_jax
+from zkrollup.curve import g1_jax, g2_jax
 from zkrollup.ref import bn254 as ref
-from zkrollup_torch.curve import g1
+from zkrollup_torch.curve import cuda_curve, g1, g2
+from zkrollup_torch.fields import fq2
+from zkrollup_torch.fields.mont import FQ
 
 # One intra-op thread per process: the suite runs in several worker
 # processes, whose torch thread pools would otherwise fight for the cores.
@@ -88,9 +94,88 @@ def test_madd_matches_generic_and_ref(distinct):
     if distinct:
         _assert_matches(got, want)
     else:
+        # the generic shape, limb for limb: the port's mixed_add
+        generic = g1.G1.mixed_add(p, (q[0], q[1], g1.G1.is_infinity(q)))
         assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
-                   for g, w in zip(got, want))
+                   for g, w in zip(generic, want))
+        # madd_z01 (the Pallas shape) matches it on every lane but P + P
+        _assert_matches([c[1:] for c in got], [np.asarray(c)[1:]
+                                               for c in want])
     assert g1.to_affine_host(got) == _sums(pa, qa)
+
+
+def _g2_operands(seed):
+    """G2 counterpart of _operands(seed, nonunit_z=True), 8 lanes."""
+    rng = np.random.RandomState(seed)
+    pt = lambda: ref.g2_mul(ref.G2_GEN, int(rng.randint(1, 1 << 62)))
+    pa, qa, ra = ([pt() for _ in range(8)] for _ in range(3))
+    qa[0] = pa[0]
+    qa[1] = ref.g2_neg(pa[1])
+    pa[2], qa[3], pa[4], qa[4] = None, None, None, None
+    p = g2.G2.add(g2.G2.add(g2.pack_jacobian_host(pa),
+                            g2.pack_jacobian_host([ref.g2_neg(r)
+                                                   for r in ra])),
+                  g2.pack_jacobian_host(ra))
+    return p, g2.pack_jacobian_host(qa), pa, qa
+
+
+CURVES = {
+    "g1": (g1, lambda s: _operands(s, nonunit_z=True), ref.g1_add,
+           lambda c: FQ.from_mont_host(c)),
+    "g2": (g2, _g2_operands, ref.g2_add, fq2.from_mont_host),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_double_plain_matches_ref(name):
+    """2P for p with Z != 1 and for q with Z = 1; infinity stays Z = 0."""
+    mod, operands, add, _ = CURVES[name]
+    curve = mod.G1 if name == "g1" else mod.G2
+    p, q, pa, qa = operands(13)
+    for pt, aff in ((p, pa), (q, qa)):
+        got = cuda_curve.double_plain(curve, pt)
+        assert mod.to_affine_host(got) == [add(a, a) for a in aff]
+        assert all(bool(z) == (a is None) for z, a in
+                   zip(curve.is_infinity(got)[:, 0], aff))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(curve.leaves(curve.double(pt)), curve.leaves(got)))
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_madd_plain_matches_ref_with_the_mdbl_shape(name):
+    """Every lane against zkrollup.ref; on P + P (lane 0) the Pallas mdbl
+    shape limb for limb: Z = 2 y2, X = x Z^2, Y = y Z^3 with (x, y) the
+    affine double of q."""
+    mod, operands, add, from_mont = CURVES[name]
+    curve = mod.G1 if name == "g1" else mod.G2
+    p, q, pa, qa = operands(17)
+    assert pa[0] == qa[0]
+    got = cuda_curve.madd_plain(curve, p, q)
+    assert mod.to_affine_host(got) == [add(a, b) for a, b in zip(pa, qa)]
+    X, Y, Z = (from_mont(curve.map(lambda a: a[:1], got)[k])[0]
+               for k in range(3))
+    x2, y2 = qa[0]
+    x, y = add(qa[0], qa[0])
+    if name == "g1":
+        Q = ref.Q
+        assert Z == 2 * y2 % Q
+        assert (X, Y) == (x * Z * Z % Q, y * pow(Z, 3, Q) % Q)
+    else:
+        assert Z == ref.fq2_add(y2, y2)
+        z2 = ref.fq2_sqr(Z)
+        assert (X, Y) == (ref.fq2_mul(x, z2),
+                          ref.fq2_mul(y, ref.fq2_mul(z2, Z)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(curve.leaves(curve.madd_z01(p, q)), curve.leaves(got)))
+
+
+def test_double_matches_generic():
+    """p has Z != 1 and infinity lanes: every limb equal."""
+    p, _, _, _ = _operands(19, nonunit_z=True)
+    got = g1.G1.double(p)
+    want = g1_jax.G1._double_generic(_jax(p))
+    assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
+               for g, w in zip(got, want))
 
 
 def test_neg_select_and_infinity():
@@ -123,5 +208,25 @@ def test_madd_nd_matches_pallas_kernel_interpret():
     p, q = (tuple(c[1:] for c in t) for t in (p, q))
     got = g1.G1.madd_z01(p, q, distinct=True)
     want = pallas_curve.g1_madd_nd(_jax(p), _jax(q))
+    assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.slow
+def test_madd_matches_pallas_kernel_interpret():
+    from zkrollup.curve import pallas_curve
+    p, q, _, _ = _operands(23, nonunit_z=True)
+    got = g1.G1.madd_z01(p, q, distinct=False)
+    want = pallas_curve.g1_madd(_jax(p), _jax(q))
+    assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.slow
+def test_double_matches_pallas_kernel_interpret():
+    from zkrollup.curve import pallas_curve
+    p, _, _, _ = _operands(29, nonunit_z=True)
+    got = g1.G1.double(p)
+    want = pallas_curve.g1_double(_jax(p))
     assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
                for g, w in zip(got, want))

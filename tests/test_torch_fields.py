@@ -1,5 +1,6 @@
 """zkrollup_torch fields against zkrollup.fields (JAX): Montgomery multiply,
-add, sub, neg, to/from Montgomery over Fr and Fq, and Fq2 mul/sqr.
+add, sub, neg, to/from Montgomery and the Fermat inverse over Fr and Fq, and
+Fq2 mul/sqr/inv.
 
 Inputs are made with numpy from a seed and handed to both packages; results
 must be equal limb for limb. The CUDA kernels are compared with their plain
@@ -85,7 +86,7 @@ def test_mont_mul_broadcast_and_lazy_operand(name):
     assert F.from_mont_host(got) == [v * rinv % F.p * b3 % F.p for v in vals]
 
 
-@pytest.mark.parametrize("op", ["mul", "sqr"])
+@pytest.mark.parametrize("op", ["mul", "sqr", "inv"])
 def test_fq2_matches_jax(op):
     a = (_pair(FQ, 41)[0], _pair(FQ, 43)[0])
     b = (_pair(FQ, 45)[0], _pair(FQ, 47)[0])
@@ -93,10 +94,30 @@ def test_fq2_matches_jax(op):
         got = fq2.mul((_t(a[0]), _t(a[1])), (_t(b[0]), _t(b[1])))
         want = jfq2.mul((jnp.asarray(a[0]), jnp.asarray(a[1])),
                         (jnp.asarray(b[0]), jnp.asarray(b[1])))
-    else:
+    elif op == "sqr":
         got = fq2.sqr((_t(a[0]), _t(a[1])))
         want = jfq2.sqr((jnp.asarray(a[0]), jnp.asarray(a[1])))
+    else:
+        a = (a[0][:16], a[1][:16])
+        got = fq2.inv((_t(a[0]), _t(a[1])))
+        want = jfq2.inv((jnp.asarray(a[0]), jnp.asarray(a[1])))
+        prod = fq2.mul(got, (_t(a[0]), _t(a[1])))
+        assert FQ.from_mont_host(prod[0]) == [1] * 16
     assert _eq(got[0], want[0]) and _eq(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_mont_inv_matches_jax(name):
+    """Fermat inverse a^(p-2) over 0, 1, p - 1, R mod p and random
+    elements; 0 maps to 0."""
+    F, JF = FIELDS[name]
+    a = F.to_mont_host(_values(F.p, 71))[-20:]
+    got = F.mont_inv(_t(a))
+    assert _eq(got, JF.mont_inv(jnp.asarray(a)))
+    vals = F.from_mont_host(a)
+    assert F.from_mont_host(got) == [pow(v, F.p - 2, F.p) for v in vals]
+    assert _eq(F.mont_pow_const(_t(a), 5),
+               JF.mont_pow_const(jnp.asarray(a), 5))
 
 
 def test_limb_codec_roundtrip():

@@ -29,7 +29,7 @@ from zkrollup_torch.fields.mont import FR
 from zkrollup_torch.groth16 import prove as P, verify as V
 from zkrollup_torch.groth16.keys import Proof, ProvingKey
 from zkrollup_torch.groth16.qap import to_coo
-from zkrollup_torch.groth16.setup import setup
+from zkrollup_torch.groth16.setup import setup_host
 
 # One intra-op thread per process: the suite runs in several worker
 # processes, whose torch thread pools would otherwise fight for the cores.
@@ -60,11 +60,14 @@ def _withdraw_r1cs():
 
 @pytest.fixture(scope="module")
 def keys():
-    """circuit -> (r1cs, port key, zkrollup key), same seed."""
+    """circuit -> (r1cs, port key, zkrollup key), same seed. The port's
+    key comes from its native-engine setup; its device setup is held
+    against both in test_torch_setup.py."""
     out = {}
     for name, r1cs in (("cubic", cubic_builder().r1cs()),
                        ("withdraw", _withdraw_r1cs())):
-        out[name] = (r1cs, setup(r1cs, seed=SEED), jsetup(r1cs, seed=SEED))
+        out[name] = (r1cs, setup_host(r1cs, seed=SEED),
+                     jsetup(r1cs, seed=SEED))
     return out
 
 

@@ -1,7 +1,11 @@
 """zkrollup_torch MSM (chunked scan) against zkrollup.msm (JAX) and the
 native engine: digits and table packing limb for limb, the fused 4-table G1
 window sums at c = 8 as affine points against msm._multi_window_sums, and
-final G1/G2 MSMs against engine.g1_msm_pip / g2_msm_pip.
+final G1/G2 MSMs against engine.g1_msm_pip / g2_msm_pip. The general MSM
+(msm(distinct=False), Horner on the device) runs over tables with duplicate
+and infinity points, against msm.msm for G1 and the native engine and
+zkrollup.ref for G1 and G2; against msm.msm for G2 in the slow tier (the
+reference's G2 msm takes minutes to compile for the CPU).
 
 Window sums are compared as affine points: the two packages sum the same
 points in different orders, so their Jacobian representatives differ.
@@ -13,11 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from zkrollup.curve import g1_jax
 from zkrollup.msm import msm as jmsm
 from zkrollup.native import engine
+from zkrollup.curve import g2_jax
+from zkrollup.ref import bn254 as ref
 from zkrollup.ref.bn254 import R as FR_MOD
 from zkrollup_torch.curve import g1, g2
 from zkrollup_torch.fields import limbs as L
@@ -164,3 +171,74 @@ def test_g2_msm_matches_native_engine():
 def test_clamp_window_matches_jax():
     for c, n in ((12, 1 << 17), (12, 300), (8, 40), (3, 2)):
         assert msm._clamp_window(c, n) == jmsm._clamp_window(c, n)
+
+
+def _dup_table(name, n, seed):
+    """n affine points with 4 duplicates and 2 infinity rows, as tensors
+    (and as ref points), and scalars as plain limbs and ints."""
+    ks = random.Random(seed).sample(range(1, 1 << 30), n)
+    ks[n - 4:] = ks[:4]
+    if name == "g1":
+        x, y, inf = engine.g1_fixed_base_mont(engine.ints_to_fr_bytes(ks), n)
+        planes = [x, y]
+    else:
+        (x0, x1), (y0, y1), inf = engine.g2_fixed_base_mont(
+            engine.ints_to_fr_bytes(ks), n)
+        planes = [x0, x1, y0, y1]
+    for a in planes:
+        a[1:3] = 0
+    inf[1:3] = True
+    mul = ref.g1_mul if name == "g1" else ref.g2_mul
+    gen = ref.G1_GEN if name == "g1" else ref.G2_GEN
+    pts = [None if i in (1, 2) else mul(gen, k) for i, k in enumerate(ks)]
+    curve = g1.G1 if name == "g1" else g2.G2
+    t = [L.to_device(a, "cpu") for a in planes]
+    k = len(t) // 2
+    table = (curve.F.from_leaves(t[:k]), curve.F.from_leaves(t[k:]),
+             torch.from_numpy(inf))
+    sc = _scalars(n, seed + 1)
+    return table, pts, L.to_device(L.ints_to_limbs(sc), "cpu"), sc
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_general_msm_matches_native_engine_and_ref(name):
+    n = 40
+    table, pts, sc_t, sc = _dup_table(name, n, 21)
+    curve, mod = (g1.G1, g1) if name == "g1" else (g2.G2, g2)
+    got = mod.to_affine_host(msm.msm(curve, table, sc_t, c=4,
+                                     distinct=False))[0]
+    tbl_np = tuple(np.asarray(c) if not isinstance(c, tuple)
+                   else tuple(np.asarray(a) for a in c) for c in table)
+    if name == "g1":
+        want = engine.g1_msm_pip(engine.pack_g1_table_mont(tbl_np),
+                                 engine.ints_to_fr_bytes(sc), n)
+        acc = None
+        for p, k in zip(pts, sc):
+            acc = ref.g1_add(acc, ref.g1_mul(p, k) if p else None)
+    else:
+        want = engine.g2_msm_pip(engine.pack_g2_table_mont(tbl_np),
+                                 engine.ints_to_fr_bytes(sc), n)
+        acc = None
+        for p, k in zip(pts, sc):
+            acc = ref.g2_add(acc, ref.g2_mul(p, k) if p else None)
+    assert got == want == acc
+
+
+@pytest.mark.parametrize("name", [
+    "g1", pytest.param("g2", marks=pytest.mark.slow)])
+def test_general_msm_matches_jax(name):
+    """8 points (two duplicates, two infinity rows) at c = 2. The
+    reference's msm compiles in about half a minute for G1 at this size,
+    and for minutes for G2 (slow tier)."""
+    table, _, sc_t, _ = _dup_table(name, 8, 31)
+    curve, mod, jcurve = ((g1.G1, g1, g1_jax.G1) if name == "g1"
+                          else (g2.G2, g2, g2_jax.G2))
+    got = mod.to_affine_host(msm.msm(curve, table, sc_t, c=2))
+    u32 = lambda t: jnp.asarray(np.asarray(t).astype(np.uint32))
+    jtable = tuple(u32(c) if name == "g1" else (u32(c[0]), u32(c[1]))
+                   for c in table[:2]) + (jnp.asarray(table[2].numpy()),)
+    jmsm_fn = jax.jit(lambda t, s: jmsm.msm(jcurve, t, s, c=2))
+    want = jmsm_fn(jtable, u32(sc_t.numpy()))
+    to_np = lambda c: (np.asarray(c) if name == "g1"
+                       else (np.asarray(c[0]), np.asarray(c[1])))
+    assert got == mod.to_affine_host([to_np(c) for c in want])

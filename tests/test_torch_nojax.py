@@ -1,6 +1,8 @@
-"""zkrollup_torch needs no JAX: with `jax` blocked, every module of the port
-imports, and the port sets up, proves and verifies the cubic circuit on the
-CPU. No source file of the port names jax in an import."""
+"""zkrollup_torch stands alone: with `jax` and the `zkrollup` package both
+blocked, every module of the port imports, and the port sets up (on the
+CPU), proves and verifies the cubic circuit built with its own r1cs
+builder. No source file of the port, chip_smoke.py or the on-card tests
+names jax or the zkrollup package in an import."""
 
 import os
 import pathlib
@@ -16,6 +18,7 @@ ROOT = PKG.parent
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["zkrollup"] = None       # and so does `import zkrollup...`
 import importlib, pkgutil
 import zkrollup_torch
 names = [m.name for m in pkgutil.walk_packages(zkrollup_torch.__path__,
@@ -23,9 +26,9 @@ names = [m.name for m in pkgutil.walk_packages(zkrollup_torch.__path__,
 for name in names:
     importlib.import_module(name)
 
-from zkrollup.r1cs.builder import Builder
+from zkrollup_torch.r1cs.builder import Builder
 from zkrollup_torch.groth16.prove import prove, prove_host
-from zkrollup_torch.groth16.setup import setup
+from zkrollup_torch.groth16.setup import setup, setup_host
 from zkrollup_torch.groth16.verify import verify
 
 bld = Builder()
@@ -33,15 +36,23 @@ out = bld.alloc_output_deferred()
 y = bld.alloc_public_input(5)
 x = bld.alloc(3)
 bld.bind_output(out, bld.mul(bld.mul(x, x), x) + y)
-pk = setup(bld.r1cs(), seed=b"nojax")
+pk = setup(bld.r1cs(), seed=b"nojax", device="cpu")
+assert pk.vk == setup_host(bld.r1cs(), seed=b"nojax").vk
 proof = prove(pk, bld.r1cs(), bld.witness(), r=2, s=3, device="cpu", c=4)
 assert verify(pk.vk, proof, bld.public_signals())
 host = prove_host(pk, bld.r1cs(), bld.witness(), r=2, s=3)
 assert (proof.a, proof.b, proof.c) == (host.a, host.b, host.c)
-assert not any(m == "jax" or m.startswith("jax.") for m, v in
-               sys.modules.items() if v is not None)
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m in ("jax", "zkrollup") or m.startswith(("jax.", "zkrollup.")))]
+assert not loaded, loaded
 print("OK", len(names))
 """
+
+# `import zkrollup`, `import zkrollup.x`, `from zkrollup import`,
+# `from zkrollup.x import` (the JAX package; zkrollup_torch does not match)
+_ZKROLLUP = re.compile(r"^\s*(import\s+zkrollup(\s|\.|,|$)|"
+                       r"from\s+zkrollup(\s|\.))", re.M)
+_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
 
 
 def test_port_runs_with_jax_blocked():
@@ -53,11 +64,24 @@ def test_port_runs_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 15       # every module was imported
+    assert int(res.stdout.split()[1]) >= 30       # every module was imported
+
+
+def _sources():
+    return list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def test_no_jax_import_in_the_port():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
-    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
-                 if pattern.search(p.read_text())]
+    offenders = [str(p.relative_to(ROOT)) for p in _sources()
+                 if _JAX.search(p.read_text())]
     assert offenders == []
+
+
+def test_no_zkrollup_import_in_the_port():
+    offenders = [str(p.relative_to(ROOT)) for p in _sources()
+                 if _ZKROLLUP.search(p.read_text())]
+    assert offenders == []
+    assert _ZKROLLUP.search("from zkrollup.ref import bn254\n")
+    assert _ZKROLLUP.search("import zkrollup\n")
+    assert not _ZKROLLUP.search("from zkrollup_torch.ref import bn254\n")

@@ -1,4 +1,4 @@
-// The zkrollup_torch CUDA kernels: four templates, seven instantiations.
+// The zkrollup_torch CUDA kernels: six templates, eleven instantiations.
 //
 //   mont_mul<Fr>, mont_mul<Fq>  replace fields/pallas_mont.py:mont_mul
 //   butterfly (Fr)              replaces fields/pallas_mont.py:butterfly
@@ -6,22 +6,44 @@
 //                               curve/pallas_curve_g2.py:g2_madd_nd
 //   jac_add<Fq>, <Fq2>          replace curve/pallas_curve.py:g1_add and
 //                               curve/pallas_curve_g2.py:g2_add
+//   jac_double<Fq>, <Fq2>       replace curve/pallas_curve.py:g1_double
+//                               (_double_kernel) and
+//                               curve/pallas_curve_g2.py:g2_double
+//   jac_madd<Fq>, <Fq2>         replace curve/pallas_curve.py:g1_madd
+//                               (_make_madd_kernel(False)) and
+//                               curve/pallas_curve_g2.py:g2_madd
 //
 // One thread per lane: load 16-bit limbs from the (n, 16) int32 storage,
 // pack them into 8 words in registers, compute, unpack, store. Nothing is
 // shared between lanes, so the TPU kernels' (16, TILE) blocking has no
 // counterpart here.
 //
-// What bounds them on the H100: the 32-bit multiply issue rate (a point add
-// is 11-22 CIOS products over Fq, three times that over Fq2) and register
-// pressure. A G1 point add holds ~10 live field elements (80 registers);
-// the Fq2 add holds twice that and spills to local memory. The curve
-// kernels cap blocks at 128 threads (__launch_bounds__) and accept the
-// spill rather than split the formula across launches: the spill stays in
-// L1 and no intermediate goes to device memory. (ptxas -v for sm_90a:
+// What bounds them on the H100: the 32-bit multiply rate (one CIOS
+// product is 264 mad.lo/mad.hi/mul.lo instructions; a point add is 11-16
+// products over Fq, about three times that over Fq2) against device memory.
+// Per lane, in Fq products (the add path, + the doubling path that only
+// P == Q lanes need) and point values read + written (a coordinate is 32 B
+// of value, so a G1 point is 96 B and a G2 point 192 B):
+//   jac_double  G1  7 products,  96 +  96 B;  G2 16 products, 192 + 192 B
+//   jac_madd    G1 11 + 6,      192 +  96 B;  G2 30 + 13,     384 + 192 B
+//   jac_madd_nd G1 11,          192 +  96 B;  G2 30,          384 + 192 B
+//   jac_add     G1 16 + 7,      192 +  96 B;  G2 44 + 16,     384 + 192 B
+// The storage moves twice those bytes: every coordinate is a 64-byte row
+// of 16 int32 limbs, half of each word zero. The kernels are branch-free,
+// so every lane also computes the doubling path. At 64 multiplies per SM
+// per clock every curve kernel is multiply-bound on the packed bytes; the
+// G1 double comes closest to the balance point. Register pressure is the
+// other limit: a G1 point add holds ~10 live field elements (80
+// registers); the Fq2 add holds twice that and spills to local memory.
+// The curve kernels cap
+// blocks at 128 threads (__launch_bounds__) and accept the spill rather
+// than split the formula across launches: the spill stays in L1 and no
+// intermediate goes to device memory. (ptxas -v for sm_90a, CUDA 12.8:
 // jac_add<Fq2> 255 registers and 172 bytes of spill stores,
-// jac_madd_nd<Fq2> 255 and 16 bytes; the Fq instantiations 123 and 131
-// registers, mont_mul 32 and butterfly 40, none of them spilling.)
+// jac_madd<Fq2> 255 and 20 bytes, jac_madd_nd<Fq2> 255 and 16 bytes,
+// jac_double<Fq2> 137; over Fq jac_add 131, jac_madd 128, jac_madd_nd 123,
+// jac_double 64; mont_mul 32 and butterfly 40; only the three Fq2 adds
+// spill.)
 //
 // C interface for ctypes: every function returns cudaGetLastError() after
 // its launch; pointers and the stream are passed as void*.
@@ -76,14 +98,29 @@ __global__ void __launch_bounds__(128) jac_madd_nd_kernel(PointArgs args,
   if (i < n) jac_madd_nd_lane<E>(args, i);
 }
 
+template <class E>
+__global__ void __launch_bounds__(128) jac_double_kernel(PointArgs args,
+                                                         int64_t n) {
+  int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) jac_double_lane<E>(args, i);
+}
+
+template <class E>
+__global__ void __launch_bounds__(128) jac_madd_kernel(PointArgs args,
+                                                       int64_t n) {
+  int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) jac_madd_lane<E>(args, i);
+}
+
 inline unsigned blocks_for(int64_t n, int threads) {
   return unsigned((n + threads - 1) / threads);
 }
 
+// n_in: input points (2 for the adds, 1 for the double)
 template <class E>
-PointArgs point_args(void* const* in, void* const* out) {
+PointArgs point_args(void* const* in, void* const* out, int n_in = 2) {
   PointArgs args = {};
-  for (int k = 0; k < 6 * Planes<E>::K; ++k)
+  for (int k = 0; k < 3 * n_in * Planes<E>::K; ++k)
     args.in[k] = static_cast<const int32_t*>(in[k]);
   for (int k = 0; k < 3 * Planes<E>::K; ++k)
     args.out[k] = static_cast<int32_t*>(out[k]);
@@ -105,6 +142,25 @@ int launch_madd_nd(void* const* in, void* const* out, int64_t n,
   if (n > 0)
     jac_madd_nd_kernel<E><<<blocks_for(n, 128), 128, 0,
                             static_cast<cudaStream_t>(stream)>>>(
+        point_args<E>(in, out), n);
+  return int(cudaGetLastError());
+}
+
+template <class E>
+int launch_double(void* const* in, void* const* out, int64_t n,
+                  void* stream) {
+  if (n > 0)
+    jac_double_kernel<E><<<blocks_for(n, 128), 128, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        point_args<E>(in, out, 1), n);
+  return int(cudaGetLastError());
+}
+
+template <class E>
+int launch_madd(void* const* in, void* const* out, int64_t n, void* stream) {
+  if (n > 0)
+    jac_madd_kernel<E><<<blocks_for(n, 128), 128, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
         point_args<E>(in, out), n);
   return int(cudaGetLastError());
 }
@@ -167,6 +223,24 @@ int zkt_g2_add(void* const* in, void* const* out, int64_t n, void* stream) {
 int zkt_g2_madd_nd(void* const* in, void* const* out, int64_t n,
                    void* stream) {
   return zkt::launch_madd_nd<zkt::Fq2>(in, out, n, stream);
+}
+
+int zkt_g1_double(void* const* in, void* const* out, int64_t n,
+                  void* stream) {
+  return zkt::launch_double<zkt::Fq>(in, out, n, stream);
+}
+
+int zkt_g2_double(void* const* in, void* const* out, int64_t n,
+                  void* stream) {
+  return zkt::launch_double<zkt::Fq2>(in, out, n, stream);
+}
+
+int zkt_g1_madd(void* const* in, void* const* out, int64_t n, void* stream) {
+  return zkt::launch_madd<zkt::Fq>(in, out, n, stream);
+}
+
+int zkt_g2_madd(void* const* in, void* const* out, int64_t n, void* stream) {
+  return zkt::launch_madd<zkt::Fq2>(in, out, n, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
-"""Jacobian point add and no-double mixed add: CUDA kernel wrappers + plain
-versions, for G1 (over Fq) and G2 (over Fq2).
+"""Jacobian point kernels: CUDA kernel wrappers + plain versions, for G1
+(over Fq) and G2 (over Fq2).
 
-Counterpart of zkrollup/curve/pallas_curve.py (g1_add, g1_madd_nd) and
-zkrollup/curve/pallas_curve_g2.py (g2_add, g2_madd_nd). The kernels are the
-jac_add / jac_madd_nd templates of csrc/curve.cuh, instantiated over Fq and
-Fq2. The plain versions follow the Pallas kernels formula for formula, so
-the kernels and the plain versions agree bit for bit, including the
-Jacobian representative and the Z-only zeroing on P + (-P).
+Counterpart of zkrollup/curve/pallas_curve.py (g1_add, g1_madd_nd, g1_madd,
+g1_double) and zkrollup/curve/pallas_curve_g2.py (g2_add, g2_madd_nd,
+g2_madd, g2_double). The kernels are the jac_add / jac_madd_nd / jac_madd /
+jac_double templates of csrc/curve.cuh, instantiated over Fq and Fq2. The
+plain versions follow the Pallas kernels formula for formula and select
+for select, so the kernels and the plain versions agree bit for bit,
+including the Jacobian representative and the Z-only zeroing on P + (-P).
+A wrapper takes its plain version only when every operand lies on the CPU;
+on a CUDA device it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,49 @@ from .. import kernels
 
 
 # -- plain versions ------------------------------------------------------------
+
+def _dbl_xy(F, X, Y):
+    """X3, Y3 of dbl-2007-bl for a = 0 (pallas_curve.py:_k_double_point)."""
+    A = F.sqr(X)
+    B = F.sqr(Y)
+    C = F.sqr(B)
+    t = F.sqr(F.add(X, B))
+    D = F.add(*[F.sub(F.sub(t, A), C)] * 2)
+    E = F.add(F.add(A, A), A)
+    FF = F.sqr(E)
+    X3 = F.sub(FF, F.add(D, D))
+    C8 = F.add(*[F.add(*[F.add(C, C)] * 2)] * 2)
+    Y3 = F.sub(F.mul(E, F.sub(D, X3)), C8)
+    return X3, Y3
+
+
+def madd_add_path(F, p, q):
+    """The madd-2007-bl add path of p (Jacobian) + (x2, y2) taken with
+    Z2 = 1: ((X3, Y3, Z3), H, R). H = R = 0 when p == q; H = 0, R != 0
+    when p == -q. Shared by both mixed adds and weierstrass.mixed_add."""
+    X1, Y1, Z1 = p
+    x2, y2 = q[0], q[1]
+    Z1Z1 = F.sqr(Z1)
+    U2 = F.mul(x2, Z1Z1)
+    S2 = F.mul(F.mul(y2, Z1), Z1Z1)
+    H = F.sub(U2, X1)
+    R = F.sub(S2, Y1)
+    HH = F.sqr(H)
+    HHH = F.mul(H, HH)
+    V = F.mul(X1, HH)
+    X3 = F.sub(F.sub(F.sqr(R), HHH), F.add(V, V))
+    Y3 = F.sub(F.mul(R, F.sub(V, X3)), F.mul(Y1, HHH))
+    return (X3, Y3, F.mul(Z1, H)), H, R
+
+
+def double_plain(curve, p):
+    """dbl-2007-bl for a = 0 (pallas_curve.py:_double_kernel); Z3 = 2 Y Z,
+    so infinity (Z = 0) stays infinity."""
+    F = curve.F
+    X, Y, Z = p
+    X3, Y3 = _dbl_xy(F, X, Y)
+    return (X3, Y3, F.mul(F.add(Y, Y), Z))
+
 
 def add_plain(curve, p, q):
     """Unified Jacobian add (pallas_curve.py:_add_kernel): 12M+4S add path,
@@ -43,7 +89,7 @@ def add_plain(curve, p, q):
 
     h_zero, r_zero = F.is_zero(H), F.is_zero(R)
     p_inf, q_inf = F.is_zero(Z1), F.is_zero(Z2)
-    out = curve.select(h_zero & r_zero, curve.double(p), (X3, Y3, Z3))
+    out = curve.select(h_zero & r_zero, double_plain(curve, p), (X3, Y3, Z3))
     to_inf = h_zero & ~r_zero & ~p_inf & ~q_inf
     out = (out[0], out[1], F.select(to_inf, F.zeros((), _device(Z3)),
                                     out[2]))
@@ -55,21 +101,8 @@ def madd_nd_plain(curve, p, q):
     """Mixed add without the doubling path
     (pallas_curve.py:_make_madd_kernel(True)); q has Z in {0, 1}."""
     F = curve.F
-    X1, Y1, Z1 = p
-    x2, y2, Z2 = q
-    Z1Z1 = F.sqr(Z1)
-    U2 = F.mul(x2, Z1Z1)
-    S2 = F.mul(F.mul(y2, Z1), Z1Z1)
-    H = F.sub(U2, X1)
-    R = F.sub(S2, Y1)
-    HH = F.sqr(H)
-    HHH = F.mul(H, HH)
-    V = F.mul(X1, HH)
-    X3 = F.sub(F.sub(F.sqr(R), HHH), F.add(V, V))
-    Y3 = F.sub(F.mul(R, F.sub(V, X3)), F.mul(Y1, HHH))
-    Z3 = F.mul(Z1, H)
-
-    p_inf, q_inf = F.is_zero(Z1), F.is_zero(Z2)
+    (X3, Y3, Z3), H, _ = madd_add_path(F, p, q)
+    p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
     to_inf = F.is_zero(H) & ~p_inf & ~q_inf
     out = (X3, Y3, F.select(to_inf, F.zeros((), _device(Z3)), Z3))
     out = curve.select(p_inf, q, out)
@@ -77,29 +110,21 @@ def madd_nd_plain(curve, p, q):
 
 
 def madd_plain(curve, p, q):
-    """Mixed add WITH the doubling path (the generic weierstrass.mixed_add
-    shape; the g1_madd / g2_madd kernels are not ported yet). CPU only."""
+    """Mixed add WITH the doubling path (pallas_curve.py:
+    _make_madd_kernel(False)); q has Z in {0, 1}. On P == Q the result is
+    the affine double (mdbl) of q with Z = 2 y2, then the P + (-P) and
+    infinity selects in the kernel's order."""
     F = curve.F
-    X1, Y1, Z1 = p
-    x2, y2, Z2 = q
-    Z1Z1 = F.sqr(Z1)
-    U2 = F.mul(x2, Z1Z1)
-    S2 = F.mul(F.mul(y2, Z1), Z1Z1)
-    H = F.sub(U2, X1)
-    R = F.sub(S2, Y1)
-    HH = F.sqr(H)
-    HHH = F.mul(H, HH)
-    V = F.mul(X1, HH)
-    X3 = F.sub(F.sub(F.sqr(R), HHH), F.add(V, V))
-    Y3 = F.sub(F.mul(R, F.sub(V, X3)), F.mul(Y1, HHH))
-    Z3 = F.mul(Z1, H)
+    (X3, Y3, Z3), H, R = madd_add_path(F, p, q)
     h_zero, r_zero = F.is_zero(H), F.is_zero(R)
-    p_inf, q_inf = F.is_zero(Z1), F.is_zero(Z2)
-    out = curve.select(h_zero & r_zero, curve.double(p), (X3, Y3, Z3))
-    dev = _device(Z3)
-    inf = curve.infinity((), dev)
-    out = curve.select(h_zero & ~r_zero & ~p_inf, inf, out)
-    out = curve.select(p_inf, (x2, y2, F.one((), dev)), out)
+    p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
+    dX, dY = _dbl_xy(F, q[0], q[1])
+    out = curve.select(h_zero & r_zero, (dX, dY, F.add(q[1], q[1])),
+                       (X3, Y3, Z3))
+    to_inf = h_zero & ~r_zero & ~p_inf & ~q_inf
+    out = (out[0], out[1], F.select(to_inf, F.zeros((), _device(Z3)),
+                                    out[2]))
+    out = curve.select(p_inf, q, out)
     return curve.select(q_inf, p, out)
 
 
@@ -109,8 +134,10 @@ def _device(z):
 
 # -- wrappers -------------------------------------------------------------------
 
-def _launch_point(name: str, curve, p, q):
-    ins = curve.leaves(p) + curve.leaves(q)
+def _launch_point(name: str, curve, *points):
+    """Launch a point kernel over same-shape batches: the adds take (p, q),
+    the double takes p; the result has p's shape."""
+    ins = [t for pt in points for t in curve.leaves(pt)]
     shape = ins[0].shape
     for i, t in enumerate(ins):
         kernels.check_cuda(t, f"{name} input {i}")
@@ -118,7 +145,7 @@ def _launch_point(name: str, curve, p, q):
             raise ValueError(f"{name}: every coordinate must share one shape "
                              f"and device, got {tuple(t.shape)} vs "
                              f"{tuple(shape)}")
-    outs = [torch.empty_like(ins[0]) for _ in range(len(ins) // 2)]
+    outs = [torch.empty_like(ins[0]) for _ in range(len(ins) // len(points))]
     n = ins[0].numel() // 16
     if n:
         in_arr = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
@@ -144,3 +171,17 @@ def madd_nd(curve, p, q):
     if _on_cpu(curve, p, q):
         return madd_nd_plain(curve, p, q)
     return _launch_point(f"{curve.name}_madd_nd", curve, p, q)
+
+
+def madd(curve, p, q):
+    """p + q for q with Z in {0, 1}: every pair, P == Q included."""
+    if _on_cpu(curve, p, q):
+        return madd_plain(curve, p, q)
+    return _launch_point(f"{curve.name}_madd", curve, p, q)
+
+
+def double(curve, p):
+    """2p for a batch of Jacobian points; infinity stays infinity."""
+    if _on_cpu(curve, p):
+        return double_plain(curve, p)
+    return _launch_point(f"{curve.name}_double", curve, p)

@@ -9,7 +9,7 @@ import numpy as np
 
 from ..fields.mont import FQ
 from ..fields import limbs as L
-from zkrollup.ref import bn254 as ref
+from ..ref import bn254 as ref
 from .weierstrass import JacobianCurve, FqOps
 
 G1 = JacobianCurve(FqOps, "g1")

@@ -9,7 +9,7 @@ import numpy as np
 
 from ..fields.mont import FQ
 from ..fields import limbs as L, fq2
-from zkrollup.ref import bn254 as ref
+from ..ref import bn254 as ref
 from .weierstrass import JacobianCurve, Fq2Ops
 
 G2 = JacobianCurve(Fq2Ops, "g2")

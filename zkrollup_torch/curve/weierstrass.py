@@ -2,11 +2,12 @@
 the coordinate field (Fq for G1, Fq2 for G2).
 
 Counterpart of zkrollup/curve/weierstrass.py. A point is (X, Y, Z) of
-field elements, Z == 0 encodes infinity. `add` and `madd_z01(distinct=True)`
-go through the CUDA kernel wrappers in cuda_curve.py, which run the plain
+field elements, Z == 0 encodes infinity. `add`, `double` and `madd_z01` go
+through the CUDA kernel wrappers in cuda_curve.py, which run the plain
 PyTorch formulas on CPU tensors. The field ops below serve those plain
-formulas only: their product is the plain PyTorch Montgomery multiply on
-every device, so a plain point op launches no kernel.
+formulas and `mixed_add` only: their product is the plain PyTorch
+Montgomery multiply on every device, so a plain point op launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -124,34 +125,37 @@ class JacobianCurve:
             [fn(*xs) for xs in zip(*(self.leaves(p) for p in ps))])
 
     def double(self, p):
-        """dbl-2007-bl for a = 0 (plain formula; infinity stays Z = 0)."""
-        X, Y, Z = p
-        F = self.F
-        A = F.sqr(X)
-        B = F.sqr(Y)
-        C = F.sqr(B)
-        t = F.sqr(F.add(X, B))
-        D = F.add(*[F.sub(F.sub(t, A), C)] * 2)
-        E = F.add(F.add(A, A), A)
-        FF = F.sqr(E)
-        X3 = F.sub(FF, F.add(D, D))
-        C8 = F.add(*[F.add(*[F.add(C, C)] * 2)] * 2)
-        Y3 = F.sub(F.mul(E, F.sub(D, X3)), C8)
-        Z3 = F.mul(F.add(Y, Y), Z)
-        return (X3, Y3, Z3)
+        """dbl-2007-bl for a = 0 (g1_double / g2_double kernel); infinity
+        stays Z = 0."""
+        return cuda_curve.double(self, p)
 
     def add(self, p, q):
         """Unified complete addition (g1_add / g2_add kernel)."""
         return cuda_curve.add(self, p, q)
 
     def madd_z01(self, p, q, distinct: bool = False):
-        """p Jacobian + q with Z in {0, 1} exactly (affine or infinity).
-        distinct=True drops the doubling path (g1_madd_nd / g2_madd_nd
-        kernel): p and q must never be the same point."""
+        """p Jacobian + q with Z in {0, 1} exactly (affine or infinity):
+        the g1_madd / g2_madd kernel, correct for every pair. distinct=True
+        drops the doubling path (g1_madd_nd / g2_madd_nd kernel): p and q
+        must never be the same point."""
         if distinct:
             return cuda_curve.madd_nd(self, p, q)
-        if self.leaves(p)[0].device.type != "cpu":
-            raise NotImplementedError(
-                f"{self.name}_madd (with the doubling path) has no CUDA "
-                "kernel yet; the MSM scan uses distinct=True")
-        return cuda_curve.madd_plain(self, p, q)
+        return cuda_curve.madd(self, p, q)
+
+    def mixed_add(self, p, q_affine):
+        """p (Jacobian) + q (affine (x, y) with a (..., 1) infinity mask):
+        the generic shape of zkrollup/curve/weierstrass.py:mixed_add, whose
+        doubling branch doubles p. Same affine result as madd_z01, other
+        Jacobian limbs on P == Q; kept for comparisons on the CPU."""
+        F = self.F
+        x2, y2, q_inf = q_affine
+        added, H, R = cuda_curve.madd_add_path(F, p, q_affine)
+        h_zero, r_zero = F.is_zero(H), F.is_zero(R)
+        p_inf = self.is_infinity(p)
+        out = self.select(h_zero & r_zero, self.double(p), added)
+        bshape = self.leaves(out)[0].shape[:-1]
+        dev = self.leaves(out)[0].device
+        out = self.select(h_zero & ~r_zero & ~p_inf,
+                          self.infinity(bshape, dev), out)
+        out = self.select(p_inf, (x2, y2, F.one(bshape, dev)), out)
+        return self.select(q_inf, p, out)

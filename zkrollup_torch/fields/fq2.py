@@ -41,6 +41,14 @@ def sqr(a, mont_mul=FQ.mont_mul):
     return (t0, FQ.add(t1, t1))
 
 
+def inv(a):
+    """1/(a0 + a1 u) = conj(a)/(a0^2 + a1^2): one Fermat inversion in Fq,
+    every product on the mont_mul kernel wrapper."""
+    norm = FQ.add(FQ.mont_mul(a[0], a[0]), FQ.mont_mul(a[1], a[1]))
+    ninv = FQ.mont_inv(norm)
+    return (FQ.mont_mul(a[0], ninv), FQ.neg(FQ.mont_mul(a[1], ninv)))
+
+
 def is_zero(a):
     return torch.logical_and(L.is_zero(a[0]), L.is_zero(a[1]))
 

@@ -100,6 +100,27 @@ class FieldCtx:
         or a single broadcast b."""
         return cuda_mont.mont_mul(self, a, b)
 
+    def mont_pow_const(self, a, e: int):
+        """a^e (Montgomery domain) for a host exponent e, batched:
+        square-and-multiply over e's bits, low to high, every product on
+        mont_mul. The reference multiplies under a mask at every bit
+        (zkrollup/fields/mont.py:159); skipping the zero bits gives the
+        same canonical limbs."""
+        acc = None
+        base = a
+        for i in range(e.bit_length()):
+            if (e >> i) & 1:
+                acc = base if acc is None else self.mont_mul(acc, base)
+            if i + 1 < e.bit_length():
+                base = self.mont_mul(base, base)
+        if acc is None:
+            return self.one_mont(a.device).expand(a.shape).contiguous()
+        return acc
+
+    def mont_inv(self, a):
+        """a^-1 via Fermat (a^(p-2)), batched; 0 maps to 0."""
+        return self.mont_pow_const(a, self.p - 2)
+
     def to_mont(self, a):
         return self.mont_mul(a, self.r2_limbs(a.device))
 

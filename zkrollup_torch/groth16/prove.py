@@ -27,9 +27,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from zkrollup.native import engine
-from zkrollup.ref import bn254 as ref
-from zkrollup.ref.bn254 import R as FR_MOD
+from ..native import engine
+from ..ref import bn254 as ref
+from ..ref.bn254 import R as FR_MOD
 from ..fields.mont import FR, FQ
 from ..fields import limbs as L
 from ..ntt.ntt import intt_mont, coset_ntt_mont, coset_intt_mont, COSET_SHIFT

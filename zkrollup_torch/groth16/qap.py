@@ -14,7 +14,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from zkrollup.ref.bn254 import R as FR_MOD
+from ..ref.bn254 import R as FR_MOD
 from ..fields.mont import FR
 
 TWO_ADICITY = 28

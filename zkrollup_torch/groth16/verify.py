@@ -1,7 +1,7 @@
 """Groth16 verification (host pairing).
 
 Counterpart of zkrollup/groth16/verify.py: the native engine's pairing
-check when it is built, the pure-Python zkrollup.ref pairing otherwise.
+check when it is built, the pure-Python ref pairing otherwise.
 This is host code; nothing here runs on the GPU.
 """
 
@@ -9,9 +9,9 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from zkrollup.native import engine
-from zkrollup.ref import bn254 as ref
-from zkrollup.ref.bn254 import Q, R as FR_MOD
+from ..native import engine
+from ..ref import bn254 as ref
+from ..ref.bn254 import Q, R as FR_MOD
 from .keys import Proof, VerifyingKey
 
 

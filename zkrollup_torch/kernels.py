@@ -40,6 +40,10 @@ _SIGS = {
     "g1_madd_nd": ("zkt_g1_madd_nd", [_P, _P, _I64, _P]),
     "g2_add": ("zkt_g2_add", [_P, _P, _I64, _P]),
     "g2_madd_nd": ("zkt_g2_madd_nd", [_P, _P, _I64, _P]),
+    "g1_double": ("zkt_g1_double", [_P, _P, _I64, _P]),
+    "g2_double": ("zkt_g2_double", [_P, _P, _I64, _P]),
+    "g1_madd": ("zkt_g1_madd", [_P, _P, _I64, _P]),
+    "g2_madd": ("zkt_g2_madd", [_P, _P, _I64, _P]),
 }
 
 # launches per kernel since the last reset_launches()

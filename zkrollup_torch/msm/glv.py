@@ -2,7 +2,7 @@
 
 Counterpart of combine_multi_window_sums_host and
 combine_window_sums_host_g2 in zkrollup/msm/glv.py, on numpy and
-zkrollup.ref.bn254. The window sums arrive in STANDARD (not Montgomery)
+ref.bn254. The window sums arrive in STANDARD (not Montgomery)
 form: the prover converts them on the device (FQ.from_mont) before the one
 device-to-host copy.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..fields import limbs as L
-from zkrollup.ref import bn254 as ref
+from ..ref import bn254 as ref
 
 
 def combine_multi_window_sums_host(wsum, c: int) -> list:

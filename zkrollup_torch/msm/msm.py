@@ -14,8 +14,11 @@ inside chunks of K points, a Blelloch scan over chunk totals and one add
 per boundary gather (the g1/g2_add kernels). No scatter-add anywhere, and
 the work per window is balanced whatever the digit skew.
 
-Sort, gathers, searchsorted and index arithmetic are torch ops. Window sums
-leave the device for a Horner combine on the host (msm/glv.py).
+Sort, gathers, searchsorted and index arithmetic are torch ops. The prover
+brings window sums to the host for a Horner combine there (msm/glv.py);
+`msm` combines them on the device instead, on the double and add kernels.
+With distinct=False the scan leg runs the madd kernels, which take the
+doubling path, so tables with duplicate points are safe.
 """
 
 from __future__ import annotations
@@ -260,3 +263,21 @@ def window_sums(curve, points_affine, scalars, c: int = 12,
     out = _flat_window_sums_scan2(curve, digits, (x, y), inf, c, 1,
                                   distinct, chunk)
     return curve.map(lambda a: a[:, 0], out), c
+
+
+def msm(curve, points_affine, scalars, c: int = 12, distinct: bool = False,
+        chunk: int = CHUNK):
+    """Full MSM on the scalars' device (msm.py:msm): the window sums, then
+    the Horner combine over windows, high to low, res = 2^c res + W_w, as
+    c double launches and one add launch per window on one lane. Returns
+    one Jacobian point with (16,) leaves. distinct=False (the default) is
+    correct for any table; distinct=True needs pairwise-distinct points."""
+    wsum, c = window_sums(curve, points_affine, scalars, c, distinct, chunk)
+    n_windows = curve.leaves(wsum)[0].shape[0]
+    res = curve.infinity((1,), scalars.device)
+    for w in range(n_windows - 1, -1, -1):
+        for _ in range(c):
+            res = curve.double(res)
+        res = curve.add(res, curve.map(lambda a: a[w:w + 1].contiguous(),
+                                       wsum))
+    return curve.map(lambda a: a[0], res)

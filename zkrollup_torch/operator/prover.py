@@ -2,8 +2,8 @@
 witness stage and the device prove stage with its mandatory self-verify.
 
 Counterpart of TxProver and PreparedBatch in zkrollup/operator/prover.py;
-circuit synthesis and input assembly are zkrollup's own
-(zkrollup.r1cs.circuits, zkrollup.witness.assembler), used unchanged.
+circuit synthesis and input assembly are the port's copies of zkrollup's
+(r1cs.circuits, witness.assembler).
 """
 
 from __future__ import annotations
@@ -14,10 +14,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from zkrollup.config import RollupConfig
-from zkrollup.r1cs.circuits import synthesize_batch_process_tx
-from zkrollup.tree.merkle import MerkleTree
-from zkrollup.witness.assembler import Transaction, assemble_batch_inputs
+from ..config import RollupConfig
+from ..r1cs.circuits import synthesize_batch_process_tx
+from ..tree.merkle import MerkleTree
+from ..witness.assembler import Transaction, assemble_batch_inputs
 from ..groth16.keys import ProvingKey, Proof, r1cs_digest
 from ..groth16.prove import prove
 from ..groth16.setup import setup
@@ -91,6 +91,8 @@ class TxProver:
         return self._r1cs
 
     def ensure_keys(self) -> ProvingKey:
+        """The cached key when its R1CS digest matches, else a new key from
+        the setup on this prover's device (saved to key_path if given)."""
         if self.pk is not None:
             return self.pk
         r1cs = self.structure_r1cs()
@@ -102,7 +104,7 @@ class TxProver:
             print(f"WARNING: cached proving key {self.key_path} has a stale "
                   "R1CS digest; regenerating. Verifiers deployed from the old "
                   "key are now invalid.", file=sys.stderr)
-        self.pk = setup(r1cs, seed=self.setup_seed)
+        self.pk = setup(r1cs, seed=self.setup_seed, device=self.device)
         if self.key_path:
             os.makedirs(os.path.dirname(os.path.abspath(self.key_path)),
                         exist_ok=True)
