@@ -1,10 +1,13 @@
 """zkrollup_torch's CUDA kernels on the card.
 
 Each kernel wrapper against its plain PyTorch version on the same CUDA
-tensors, bit for bit; the NTT, the MSM window sums and the general MSM on
-the card against the same functions on the CPU; a small setup on the card
-against the native engine's; and the BatchProcessTx(2,6) proof against the
-native engine. Every test needs a CUDA device and skips without one.
+tensors, bit for bit (the integer-unit kernels of tools/profile_alu.py
+too); the NTT, the MSM window sums and the general MSM on the card against
+the same functions on the CPU; the bucket strategies and the GLV MSM
+against the native engine; the G2 point-kernel check; a small setup on the
+card against the native engine's; and the BatchProcessTx(2,6) proof
+against the native engine. Every test needs a CUDA device and skips
+without one.
 
 The file imports neither JAX nor the zkrollup package, so it runs where JAX
 is not installed, as on the machine with the card (tests/conftest.py
@@ -138,11 +141,34 @@ def test_point_kernels_match_plain(cuda_device, name):
         got, want = (curve.leaves(f(curve, one))
                      for f in (cuda_curve.double, cuda_curve.double_plain))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # the no-double add: every lane but P + P (its contract)
+    # the add without the doubling path: every lane, P + P included
+    # (outside its contract, but the kernel and the plain version agree)
+    got, want = (curve.leaves(f(curve, p, q))
+                 for f in (cuda_curve.add_nd, cuda_curve.add_nd_plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the add of Z in {0, 1} operands, against q: P + P, P + (-P),
+    # inf + Q, P + inf, inf + inf
+    z01 = _z01_operand(curve, q)
+    got, want = (curve.leaves(f(curve, z01, q))
+                 for f in (cuda_curve.add_z01, cuda_curve.add_z01_plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the no-double mixed add: every lane but P + P (its contract)
     p, q = (curve.map(lambda a: a[1:].contiguous(), t) for t in (p, q))
     got, want = (curve.leaves(f(curve, p, q))
                  for f in (cuda_curve.madd_nd, cuda_curve.madd_nd_plain))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _z01_operand(curve, q):
+    """Affine-or-infinity points against q (Z in {0, 1}): q rolled by one
+    lane, then lane 0 = q (P + P), lane 1 = -q (P + (-P)), lanes 2 and 4
+    infinity (inf + Q, inf + inf); q's lane 3 is infinity (P + inf)."""
+    z = curve.map(lambda a: a.roll(1, dims=0).contiguous(), q)
+    neg_q = curve.neg(q)
+    for d, s0, s1 in zip(curve.leaves(z), curve.leaves(q),
+                         curve.leaves(neg_q)):
+        d[0], d[1], d[2], d[4] = s0[0], s1[1], 0, 0
+    return z
 
 
 @pytest.mark.cuda
@@ -273,3 +299,47 @@ def test_tx_2_6_proof_on_cuda_equals_native_engine(cuda_device):
     proof = prover.prove_prepared(prep, r=5, s=6)   # raises unless it verifies
     want = prove_host(pk, prover.structure_r1cs(), prep.witness, r=5, s=6)
     assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+
+
+@pytest.mark.cuda
+def test_alu_kernels_match_plain(cuda_device):
+    """tools/profile_alu: each integer-unit kernel at (16, 4096) and 256
+    reps equals its plain version bit for bit."""
+    from zkrollup_torch.tools import profile_alu
+    assert set(profile_alu.check(cuda_device)) == set(profile_alu.OPS)
+
+
+@pytest.mark.cuda
+def test_point_kernel_check_on_cuda(cuda_device):
+    from zkrollup_torch.tools import g2_kernel_check
+    g2_kernel_check.run(cuda_device, log=lambda m: None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_msm_trees_on_cuda_match_native_engine(cuda_device, name):
+    """Every bucket strategy over a table with duplicates and infinity
+    rows on the card, against the native engine; the G1 GLV MSM too."""
+    from zkrollup_torch.msm.glv import msm_glv
+    curve, mod = (g1.G1, g1) if name == "g1" else (g2.G2, g2)
+    (x, y, inf), sc = _dup_table(curve, 200, 13)
+    tbl = tuple(np.asarray(v) if not isinstance(v, tuple)
+                else tuple(np.asarray(a) for a in v) for v in (x, y, inf))
+    w_bytes = engine.ints_to_fr_bytes(L.limbs_to_ints(sc))
+    if name == "g1":
+        want = engine.g1_msm_pip(engine.pack_g1_table_mont(tbl), w_bytes,
+                                 200)
+    else:
+        want = engine.g2_msm_pip(engine.pack_g2_table_mont(tbl), w_bytes,
+                                 200)
+    on = lambda v: curve.F.from_leaves([a.to(cuda_device)
+                                        for a in curve.F.leaves(v)])
+    pts = (on(x), on(y), inf.to(cuda_device))
+    affine = lambda pt: mod.to_affine_host(pt)[0]
+    for tree in msm.TREES:
+        got = msm.msm(curve, pts, sc.to(cuda_device), c=6, tree=tree)
+        assert affine(got) == want, tree
+    if name == "g1":
+        for tree in ("scan", "jacobian"):
+            got = msm_glv(pts, sc.to(cuda_device), c=6, tree=tree)
+            assert affine(got) == want, f"glv {tree}"

@@ -1,5 +1,6 @@
 """zkrollup_torch G1 point ops against zkrollup.curve (JAX): the unified add,
-the double and the mixed add (no-double and safe) against the generic
+the add without the doubling path, the add of Z in {0, 1} operands, the
+double and the mixed add (no-double and safe) against the generic
 weierstrass G1 formulas and, in the slow tier, against the Pallas kernels
 in interpret mode; every result also against zkrollup.ref affine
 arithmetic. The plain versions of the double and the safe mixed add are
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from zkrollup.curve import g1_jax, g2_jax
@@ -73,12 +75,78 @@ def _sums(pa, qa):
     return [ref.g1_add(a, b) for a, b in zip(pa, qa)]
 
 
+def _mixed_add(curve, p, q_affine):
+    """p (Jacobian) + q (affine (x, y) with an (..., 1) infinity mask): the
+    generic shape of zkrollup/curve/weierstrass.py:mixed_add, whose
+    doubling branch doubles p. The same affine result as madd_z01, other
+    Jacobian limbs on P == Q."""
+    F = curve.F
+    x2, y2, q_inf = q_affine
+    added, H, R = cuda_curve.madd_add_path(F, p, q_affine)
+    h_zero, r_zero = F.is_zero(H), F.is_zero(R)
+    p_inf = curve.is_infinity(p)
+    out = curve.select(h_zero & r_zero, curve.double(p), added)
+    bshape = curve.leaves(out)[0].shape[:-1]
+    dev = curve.leaves(out)[0].device
+    out = curve.select(h_zero & ~r_zero & ~p_inf,
+                       curve.infinity(bshape, dev), out)
+    out = curve.select(p_inf, (x2, y2, F.one(bshape, dev)), out)
+    return curve.select(q_inf, p, out)
+
+
+def _z01_operands(seed):
+    """(p, q, affine p, affine q), every Z in {0, 1}. Lanes: 0 P + P,
+    1 P + (-P), 2 inf + Q, 3 P + inf, 4 inf + inf, the rest random."""
+    pa, qa = _points(N, seed), _points(N, seed + 1)
+    pa[0] = qa[0]
+    pa[1] = ref.g1_neg(qa[1])
+    pa[3] = ref.g1_mul(ref.G1_GEN, 99)
+    pa[2], qa[3], pa[4], qa[4] = None, None, None, None
+    return g1.pack_jacobian_host(pa), g1.pack_jacobian_host(qa), pa, qa
+
+
+def _limbs_equal(got, want, lanes=slice(None)):
+    return all(np.array_equal(g.numpy().astype(np.uint32)[lanes],
+                              np.asarray(w)[lanes])
+               for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("nonunit_z", [False, True])
 def test_add_matches_generic_and_ref(nonunit_z):
     p, q, pa, qa = _operands(3, nonunit_z)
     got = g1.G1.add(p, q)
     _assert_matches(got, g1_jax.G1._add_generic(_jax(p), _jax(q)))
     assert g1.to_affine_host(got) == _sums(pa, qa)
+
+
+def test_add_nd_matches_generic_and_ref():
+    """Distinct lanes (all but lane 0, P + P): the generic safe add, limb
+    for limb on finite lanes and Z everywhere (on P + (-P) the generic
+    formula zeroes X and Y too)."""
+    p, q, pa, qa = _operands(31, nonunit_z=True)
+    # the reference runs on every lane (the shapes of the add test, so its
+    # compiled ops are reused); lane 0 is outside add_nd's contract
+    want = [np.asarray(c)[1:]
+            for c in jax.jit(g1_jax.G1.add_nd)(_jax(p), _jax(q))]
+    got = tuple(c[1:] for c in g1.G1.add_nd(p, q))
+    _assert_matches(got, want)
+    assert g1.to_affine_host(got) == _sums(pa[1:], qa[1:])
+
+
+@pytest.mark.parametrize("seed", [37, 41])
+def test_add_z01_matches_generic_and_ref(seed):
+    """Both operands with Z in {0, 1}; every special lane. Limb for limb on
+    every lane but P + (-P) (lane 1), where only Z is zeroed (the generic
+    formula gives (0, 0, 0)): there as affine points."""
+    p, q, pa, qa = _z01_operands(seed)
+    got = g1.G1.add_z01(p, q)
+    want = jax.jit(g1_jax.G1._add_z01_generic)(_jax(p), _jax(q))
+    keep = np.arange(N) != 1
+    assert _limbs_equal(got, want, keep)
+    assert np.array_equal(got[2][1].numpy(), np.zeros(16, np.int32))
+    assert g1.to_affine_host(got) == _sums(pa, qa)
+    assert g1.to_affine_host(tuple(np.asarray(w) for w in want)) == \
+        _sums(pa, qa)
 
 
 @pytest.mark.parametrize("distinct", [True, False])
@@ -94,8 +162,8 @@ def test_madd_matches_generic_and_ref(distinct):
     if distinct:
         _assert_matches(got, want)
     else:
-        # the generic shape, limb for limb: the port's mixed_add
-        generic = g1.G1.mixed_add(p, (q[0], q[1], g1.G1.is_infinity(q)))
+        # the generic shape, limb for limb
+        generic = _mixed_add(g1.G1, p, (q[0], q[1], g1.G1.is_infinity(q)))
         assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
                    for g, w in zip(generic, want))
         # madd_z01 (the Pallas shape) matches it on every lane but P + P
@@ -230,3 +298,22 @@ def test_double_matches_pallas_kernel_interpret():
     want = pallas_curve.g1_double(_jax(p))
     assert all(np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
                for g, w in zip(got, want))
+
+
+@pytest.mark.slow
+def test_add_nd_matches_pallas_kernel_interpret():
+    """Every lane, P + P (lane 0) included: there the kernel without the
+    doubling path gives infinity by Z, and so does the port."""
+    from zkrollup.curve import pallas_curve
+    p, q, _, _ = _operands(43, nonunit_z=True)
+    got = g1.G1.add_nd(p, q)
+    assert _limbs_equal(got, pallas_curve.g1_add_nd(_jax(p), _jax(q)))
+    assert not got[2][0].any()
+
+
+@pytest.mark.slow
+def test_add_z01_matches_pallas_kernel_interpret():
+    from zkrollup.curve import pallas_curve
+    p, q, _, _ = _z01_operands(47)
+    got = g1.G1.add_z01(p, q)
+    assert _limbs_equal(got, pallas_curve.g1_add_z01(_jax(p), _jax(q)))

@@ -1,17 +1,23 @@
-"""zkrollup_torch MSM (chunked scan) against zkrollup.msm (JAX) and the
-native engine: digits and table packing limb for limb, the fused 4-table G1
-window sums at c = 8 as affine points against msm._multi_window_sums, and
-final G1/G2 MSMs against engine.g1_msm_pip / g2_msm_pip. The general MSM
+"""zkrollup_torch MSM against zkrollup.msm (JAX) and the native engine:
+digits and table packing limb for limb, the fused 4-table G1 window sums
+at c = 8 as affine points against msm._multi_window_sums, and final G1/G2
+MSMs against engine.g1_msm_pip / g2_msm_pip. The general MSM
 (msm(distinct=False), Horner on the device) runs over tables with duplicate
 and infinity points, against msm.msm for G1 and the native engine and
 zkrollup.ref for G1 and G2; against msm.msm for G2 in the slow tier (the
-reference's G2 msm takes minutes to compile for the CPU).
+reference's G2 msm takes minutes to compile for the CPU). The four bucket
+strategies (tree=) over collision-heavy inputs: every one against
+zkrollup.ref for G1 and G2, and window by window against the reference's
+window_sums with the same strategy (msm._TREE_MODE): "jacobian" in the fast
+tier, the others and G2 in the slow tier (each reference compile takes
+25-60 s for G1 on the CPU, minutes for G2).
 
 Window sums are compared as affine points: the two packages sum the same
 points in different orders, so their Jacobian representatives differ.
 """
 
 import random
+from functools import partial
 
 import numpy as np
 import pytest
@@ -242,3 +248,105 @@ def test_general_msm_matches_jax(name):
     to_np = lambda c: (np.asarray(c) if name == "g1"
                        else (np.asarray(c[0]), np.asarray(c[1])))
     assert got == mod.to_affine_host([to_np(c) for c in want])
+
+
+def _collision_input():
+    """tests/test_ntt_curve_msm.py:150-167: runs of equal digits, scalars
+    0, 1 and r - 1, and an infinity row."""
+    sc = [5] * 6 + [0, 1, ref.R - 1] + [11] * 7
+    pts = [ref.g1_mul(ref.G1_GEN, i + 2) for i in range(len(sc) - 1)]
+    pts += [None]
+    return pts, sc
+
+
+def _g2_collision_input():
+    """G2 points with duplicates (3, 3; 7, 7, 7), an infinity row and the
+    scalars 0, 1, r - 1 beside random ones."""
+    ks = [3, 3, 5, 7, 7, 7, 9, None]
+    pts = [None if k is None else ref.g2_mul(ref.G2_GEN, k) for k in ks]
+    rng = random.Random(17)
+    sc = [0, 1, ref.R - 1] + [rng.randrange(ref.R) for _ in range(5)]
+    return pts, sc
+
+
+def _port_affine(points, curve_mod):
+    x, y, inf = curve_mod.pack_affine_host(points)
+    dev = lambda v: (L.to_device(v, "cpu") if not isinstance(v, tuple)
+                     else tuple(L.to_device(a, "cpu") for a in v))
+    return dev(x), dev(y), torch.from_numpy(inf)
+
+
+@pytest.mark.parametrize("tree", msm.TREES)
+def test_trees_match_ref(tree):
+    """Every strategy, G1 over the collision-heavy input and G2 over a
+    table with duplicates, at c = 3: window sums on the port, Horner on
+    the host, against zkrollup.ref."""
+    pts, sc = _collision_input()
+    got = msm.msm_host_combine(g1.G1, _port_affine(pts, g1),
+                               L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                               tree=tree)
+    want = ref.g1_msm(pts[:-1], sc[:-1])
+    assert g1.to_affine_host([c.reshape(1, 16) for c in got]) == [want]
+
+    pts, sc = _g2_collision_input()
+    wsum, c = msm.window_sums(g2.G2, _port_affine(pts, g2),
+                              L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                              tree=tree)
+    std = tuple((FQ.from_mont(a[0]), FQ.from_mont(a[1])) for a in wsum)
+    acc = None
+    for p, k in zip(pts, sc):
+        acc = ref.g2_add(acc, ref.g2_mul(p, k) if p else None)
+    assert combine_window_sums_host_g2(std, c) == acc
+
+
+def test_unknown_tree_raises():
+    pts, sc = _collision_input()
+    with pytest.raises(ValueError, match="'scan', 'scan1', 'affine' or "
+                                         "'jacobian'"):
+        msm.window_sums(g1.G1, _port_affine(pts, g1),
+                        L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                        tree="buckets")
+
+
+def _jax_window_sums(monkeypatch, jcurve, points, sc, tree, c):
+    monkeypatch.setattr(jmsm, "_TREE_MODE", tree)
+    fn = jax.jit(partial(jmsm.window_sums, jcurve, c=c))
+    return fn(points, jnp.asarray(L.ints_to_limbs(sc)))
+
+
+@pytest.mark.parametrize("tree", [
+    pytest.param(t, marks=() if t == "jacobian" else pytest.mark.slow)
+    for t in msm.TREES])
+def test_trees_match_jax(monkeypatch, tree):
+    """The port's G1 window sums with each strategy against the
+    reference's with the same strategy, window by window as affine points
+    (the two sum in other orders), on the collision-heavy input at c = 3."""
+    pts, sc = _collision_input()
+    x, y, inf = g1_jax.pack_affine_host(pts)
+    want, jc = _jax_window_sums(monkeypatch, g1_jax.G1,
+                                (jnp.asarray(x), jnp.asarray(y),
+                                 jnp.asarray(inf)), sc, tree, 3)
+    got, c = msm.window_sums(g1.G1, _port_affine(pts, g1),
+                             L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                             tree=tree)
+    assert c == jc == 3
+    assert g1.to_affine_host(got) == g1.to_affine_host(
+        [np.asarray(a) for a in want])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("tree", msm.TREES)
+def test_g2_trees_match_jax(monkeypatch, tree):
+    """G2 window sums with each strategy against the reference's (its G2
+    window_sums compiles for minutes on the CPU)."""
+    pts, sc = _g2_collision_input()
+    (x0, x1), (y0, y1), inf = g2_jax.pack_affine_host(pts)
+    j = jnp.asarray
+    want, _ = _jax_window_sums(monkeypatch, g2_jax.G2,
+                               ((j(x0), j(x1)), (j(y0), j(y1)), j(inf)),
+                               sc, tree, 3)
+    got, _ = msm.window_sums(g2.G2, _port_affine(pts, g2),
+                             L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                             tree=tree)
+    to_np = lambda p: tuple((np.asarray(c[0]), np.asarray(c[1])) for c in p)
+    assert g2.to_affine_host(got) == g2.to_affine_host(to_np(want))

@@ -72,6 +72,17 @@ def _sources():
                                       ROOT / "tests" / "test_torch_cuda.py"]
 
 
+def test_the_scan_covers_every_source():
+    """The port's subpackages, its tools included, the smoke script and
+    the on-card tests."""
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for want in ("zkrollup_torch/tools/profile_alu.py",
+                 "zkrollup_torch/tools/g2_kernel_check.py",
+                 "zkrollup_torch/msm/glv.py", "chip_smoke.py",
+                 "tests/test_torch_cuda.py"):
+        assert want in names
+
+
 def test_no_jax_import_in_the_port():
     offenders = [str(p.relative_to(ROOT)) for p in _sources()
                  if _JAX.search(p.read_text())]

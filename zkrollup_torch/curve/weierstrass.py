@@ -2,12 +2,14 @@
 the coordinate field (Fq for G1, Fq2 for G2).
 
 Counterpart of zkrollup/curve/weierstrass.py. A point is (X, Y, Z) of
-field elements, Z == 0 encodes infinity. `add`, `double` and `madd_z01` go
-through the CUDA kernel wrappers in cuda_curve.py, which run the plain
-PyTorch formulas on CPU tensors. The field ops below serve those plain
-formulas and `mixed_add` only: their product is the plain PyTorch
-Montgomery multiply on every device, so a plain point op launches no
-kernel.
+field elements, Z == 0 encodes infinity. `add`, `add_nd`, `add_z01`,
+`double` and `madd_z01` go through the CUDA kernel wrappers in
+cuda_curve.py, which run the plain PyTorch formulas on CPU tensors. The
+field ops `mul` and `sqr` below serve those plain formulas: their product
+is the plain PyTorch Montgomery multiply on every device, so a plain point
+op launches no kernel. `kmul`, `ksqr` and `inv` take the mont_mul kernel
+wrapper instead; they serve the batched affine add of the MSM's affine
+merge tree (`batch_inverse`, `affine_add_batch`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ class FqOps:
     @staticmethod
     def sqr(a):
         return _fq_mul(a, a)
+
+    # on the mont_mul kernel (its plain version on CPU tensors)
+    kmul = staticmethod(FQ.mont_mul)
+    inv = staticmethod(FQ.mont_inv)
+
+    @staticmethod
+    def ksqr(a):
+        return FQ.mont_mul(a, a)
 
     @staticmethod
     def zeros(batch, device):
@@ -74,6 +84,11 @@ class Fq2Ops:
     def sqr(a):
         return fq2.sqr(a, _fq_mul)
 
+    # on the mont_mul kernel (its plain version on CPU tensors)
+    kmul = staticmethod(fq2.mul)
+    ksqr = staticmethod(fq2.sqr)
+    inv = staticmethod(fq2.inv)
+
     @staticmethod
     def zeros(batch, device):
         z = FqOps.zeros(batch, device)
@@ -90,6 +105,80 @@ class Fq2Ops:
     @staticmethod
     def from_leaves(ls):
         return (ls[0], ls[1])
+
+
+def _fmap(F, fn, *xs):
+    """Apply fn leafwise over field elements of F."""
+    return F.from_leaves([fn(*ls) for ls in zip(*(F.leaves(x) for x in xs))])
+
+
+def batch_inverse(F, d):
+    """Batched field inversion with ONE Fermat inversion
+    (weierstrass.py:batch_inverse): a log-depth product tree, m - 1
+    products up and 2(m - 1) down, Montgomery's trick made parallel. d: a
+    batch (m, 16) of nonzero field elements (callers set zero lanes to
+    one); a length that is not a power of two is padded with ones. Every
+    product is one mont_mul launch over the level; the one inversion is
+    ~380 launches on one lane (FQ.mont_inv)."""
+    m = F.leaves(d)[0].shape[0]
+    dev = F.leaves(d)[0].device
+    m_pad = 1 << max((m - 1).bit_length(), 0)
+    if m_pad != m:
+        d = _fmap(F, lambda a, o: torch.cat([a, o]), d,
+                  F.one((m_pad - m,), dev))
+    levels = []
+    cur = d
+    while F.leaves(cur)[0].shape[0] > 1:
+        levels.append(cur)
+        cur = F.kmul(_fmap(F, lambda a: a[0::2].contiguous(), cur),
+                     _fmap(F, lambda a: a[1::2].contiguous(), cur))
+    inv = F.inv(_fmap(F, lambda a: a.contiguous(), cur))
+    for lvl in reversed(levels):
+        half = F.leaves(lvl)[0].shape[0] // 2
+        # inv is the inverse of each pair's product: 1/l = inv r, 1/r = inv l
+        left = _fmap(F, lambda a: a[0::2].contiguous(), lvl)
+        right = _fmap(F, lambda a: a[1::2].contiguous(), lvl)
+        inv_l = F.kmul(inv, right)
+        inv_r = F.kmul(inv, left)
+        inv = _fmap(F, lambda l, r: torch.stack([l, r], dim=1).reshape(
+            2 * half, L.N_LIMBS), inv_l, inv_r)
+    if m_pad != m:
+        inv = _fmap(F, lambda a: a[:m].contiguous(), inv)
+    return inv
+
+
+def affine_add_batch(curve, p, q):
+    """Batched unified AFFINE add (weierstrass.py:affine_add_batch): p, q =
+    (x, y, inf) with inf an (m, 1) bool mask; returns the sum in the same
+    form. Every lane shares one batch_inverse, so a complete add costs ~6
+    products. The doubling denominator 2y is safe: BN254 G1 and G2 have
+    odd prime order, so y == 0 only at infinity."""
+    F = curve.F
+    x1, y1, x2, y2 = (_fmap(F, lambda a: a.contiguous(), v)
+                      for v in (p[0], p[1], q[0], q[1]))
+    i1, i2 = p[2], q[2]
+    dev = F.leaves(x1)[0].device
+    m = F.leaves(x1)[0].shape[0]
+    same_x = F.is_zero(F.sub(x2, x1))
+    same_y = F.is_zero(F.sub(y2, y1))
+    both = ~(i1 | i2)
+    dbl = same_x & same_y
+    opp = same_x & ~same_y                         # p == -q
+    # denominator: 2 y1 on the doubling path, x2 - x1 otherwise; lanes
+    # whose true denominator is 0 (infinities, p == -q) take a dummy one
+    d = F.select(dbl, F.add(y1, y1), F.sub(x2, x1))
+    d = F.select(~(both & ~opp), F.one((m,), dev), d)
+    dinv = batch_inverse(F, d)
+    xx = F.ksqr(x1)
+    num = F.select(dbl, F.add(F.add(xx, xx), xx), F.sub(y2, y1))
+    lam = F.kmul(num, dinv)
+    x3 = F.sub(F.sub(F.ksqr(lam), x1), x2)
+    y3 = F.sub(F.kmul(lam, F.sub(x1, x3)), y1)
+    x3 = F.select(i1, x2, x3)
+    y3 = F.select(i1, y2, y3)
+    x3 = F.select(i2, x1, x3)
+    y3 = F.select(i2, y1, y3)
+    return (x3, y3, (i1 & i2) | (both & opp))
 
 
 @dataclass
@@ -133,6 +222,18 @@ class JacobianCurve:
         """Unified complete addition (g1_add / g2_add kernel)."""
         return cuda_curve.add(self, p, q)
 
+    def add_nd(self, p, q):
+        """Jacobian add for p and q that are never the same point (the
+        g1_add_nd / g2_add_nd kernel, weierstrass.py:add_nd): no doubling
+        path; infinity on either side and p == -q stay exact."""
+        return cuda_curve.add_nd(self, p, q)
+
+    def add_z01(self, p, q):
+        """Unified add for p and q with Z in {0, 1} exactly (affine or
+        infinity: the MSM merge tree's leaf level): the g1_add_z01 /
+        g2_add_z01 kernel, ~1.9x fewer products than `add`."""
+        return cuda_curve.add_z01(self, p, q)
+
     def madd_z01(self, p, q, distinct: bool = False):
         """p Jacobian + q with Z in {0, 1} exactly (affine or infinity):
         the g1_madd / g2_madd kernel, correct for every pair. distinct=True
@@ -141,21 +242,3 @@ class JacobianCurve:
         if distinct:
             return cuda_curve.madd_nd(self, p, q)
         return cuda_curve.madd(self, p, q)
-
-    def mixed_add(self, p, q_affine):
-        """p (Jacobian) + q (affine (x, y) with a (..., 1) infinity mask):
-        the generic shape of zkrollup/curve/weierstrass.py:mixed_add, whose
-        doubling branch doubles p. Same affine result as madd_z01, other
-        Jacobian limbs on P == Q; kept for comparisons on the CPU."""
-        F = self.F
-        x2, y2, q_inf = q_affine
-        added, H, R = cuda_curve.madd_add_path(F, p, q_affine)
-        h_zero, r_zero = F.is_zero(H), F.is_zero(R)
-        p_inf = self.is_infinity(p)
-        out = self.select(h_zero & r_zero, self.double(p), added)
-        bshape = self.leaves(out)[0].shape[:-1]
-        dev = self.leaves(out)[0].device
-        out = self.select(h_zero & ~r_zero & ~p_inf,
-                          self.infinity(bshape, dev), out)
-        out = self.select(p_inf, (x2, y2, F.one(bshape, dev)), out)
-        return self.select(q_inf, p, out)

@@ -1,7 +1,7 @@
 """Montgomery multiply and NTT butterfly: CUDA kernel wrappers + plain versions.
 
 Counterpart of zkrollup/fields/pallas_mont.py. The kernels are
-csrc/kernels.cu (mont_mul_kernel<Fr|Fq>, butterfly_kernel), built and
+csrc/fields.cu (mont_mul_kernel<Fr|Fq>, butterfly_kernel), built and
 launched through zkrollup_torch.kernels. A wrapper runs its plain PyTorch
 version when its tensors lie on the CPU, and launches its kernel (or raises)
 when they lie on a CUDA device.

@@ -8,10 +8,19 @@ Counterpart of the device branch of zkrollup/groth16/prove.py:prove:
   3. quotient h = (A*B - C)/Z on the coset g*H: 3 iNTT, 3 coset NTT, a
      pointwise step and 1 coset iNTT (butterfly and mont_mul kernels)
   4. per-table scalars, duplicate key points merged (_filt_dedup)
-  5. one fused 4-table G1 MSM (chunked scan, g1_madd_nd / g1_add kernels)
-  6. one G2 MSM over the deduplicated b2 table (g2_madd_nd / g2_add)
+  5. one fused 4-table G1 MSM (chunked scan, g1_madd_nd / g1_add kernels);
+     with glv=True instead four GLV MSMs over the full a, b1, c and h
+     tables (msm/glv.py:msm_glv), each with the host Horner combine
+  6. one G2 MSM over the deduplicated b2 table (g2_madd_nd / g2_add with
+     the default tree="scan")
   7. window sums to standard form on the device (mont_mul over Fq), one
      copy to the host, Horner combine and blinding there
+
+`tree` picks the bucket strategy of every single-table window sum (msm.py:
+TREES): the G2 MSM, and with glv=True the four G1 MSMs. The fused G1 MSM
+of the default path stays on the chunked scan, as in the reference. The
+reference selects both with ZKROLLUP_PROVE_GLV and ZKROLLUP_MSM_TREE at
+import; the port takes them as arguments.
 
 prove_host mirrors the reference's host path (zkrollup/groth16/prove.py:
 _prove_host) on the native engine; it is the independent check the device
@@ -33,11 +42,12 @@ from ..ref.bn254 import R as FR_MOD
 from ..fields.mont import FR, FQ
 from ..fields import limbs as L
 from ..ntt.ntt import intt_mont, coset_ntt_mont, coset_intt_mont, COSET_SHIFT
+from ..curve import g1 as g1_mod
 from ..curve.g1 import G1
 from ..curve.g2 import G2
 from ..msm import msm
 from ..msm.glv import (combine_multi_window_sums_host,
-                       combine_window_sums_host_g2)
+                       combine_window_sums_host_g2, msm_glv)
 from .keys import ProvingKey, Proof
 from .qap import to_coo
 
@@ -144,6 +154,27 @@ def _device_pack_g2(pk: ProvingKey, device):
     return pack
 
 
+def _device_tables_glv(pk: ProvingKey, device):
+    """The a, b1, c and h tables as they are, infinity rows and duplicate
+    points included, on `device`: the GLV MSMs take any table. Cached."""
+    cache = pk.__dict__.setdefault("_torch_tables_glv", {})
+    key = str(device)
+    if key not in cache:
+        cache[key] = {t: (L.to_device(np.asarray(x), device),
+                          L.to_device(np.asarray(y), device),
+                          _dev(np.asarray(inf), device))
+                      for t, (x, y, inf) in (("a", pk.a_g1),
+                                             ("b1", pk.b1_g1),
+                                             ("c", pk.c_g1),
+                                             ("h", pk.h_g1))}
+    return cache[key]
+
+
+def _g1_affine(jac):
+    """A Jacobian point with (16,) Montgomery leaves -> affine | None."""
+    return g1_mod.to_affine_host([c.reshape(1, L.N_LIMBS) for c in jac])[0]
+
+
 def _segsum_scalars(scalars, seg, n_seg: int) -> torch.Tensor:
     """Sum the scalars of merged duplicate points, mod r (plain form)."""
     sums = torch.zeros((n_seg, L.N_LIMBS), dtype=torch.int64,
@@ -209,13 +240,15 @@ def _check_rs(pk: ProvingKey, r1cs, r, s):
 
 
 def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
-          s: Optional[int] = None, *, device, c: int = 12,
-          timings: Optional[dict] = None) -> Proof:
+          s: Optional[int] = None, *, device, c: int = 12, glv: bool = False,
+          tree: str = "scan", timings: Optional[dict] = None) -> Proof:
     """Groth16 proof of `witness` (full assignment, var 0 = 1) on `device`.
     r, s pin the blinding (same inputs, same key => same proof bytes). c is
-    the Pippenger window; proofs do not depend on it. If `timings` is a
+    the Pippenger window; proofs do not depend on it, nor on glv (the GLV
+    G1 MSMs) or tree (the bucket strategy, msm.TREES). If `timings` is a
     dict, each stage synchronises the device and records its seconds."""
     r, s = _check_rs(pk, r1cs, r, s)
+    msm._check_tree(tree)
     device = torch.device(device)
     coo = to_coo(r1cs)
     m = coo.m
@@ -240,22 +273,35 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
     h_plain = _quotient_plain(a_e, b_e, c_e, zinv_mont)
     stage("evals_quotient")
 
-    pack = _device_pack_g1(pk, device)
-    sc_cat = _scalars_cat(w_plain, h_plain, pack)
-    wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
-                                      pack["bounds"], distinct=True)
-    wsum1 = _to_host_standard(G1, wsum1)
+    if glv:
+        # four GLV MSMs over the full tables, each combined on the host
+        # (prove.py:448-458); the scalars go to the host for the
+        # decomposition
+        tbl = _device_tables_glv(pk, device)
+        w_np = w_plain.cpu().numpy().astype(np.uint32)
+        h_np = h_plain[:m - 1].cpu().numpy().astype(np.uint32)
+        g1_pts = [_g1_affine(msm_glv(tbl[t], sc, c=c, tree=tree))
+                  for t, sc in (("a", w_np), ("b1", w_np),
+                                ("c", w_np[pk.n_public:]), ("h", h_np))]
+    else:
+        pack = _device_pack_g1(pk, device)
+        sc_cat = _scalars_cat(w_plain, h_plain, pack)
+        wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
+                                          pack["bounds"], distinct=True)
+        wsum1 = _to_host_standard(G1, wsum1)
     stage("msm_g1")
 
     g2p = _device_pack_g2(pk, device)
     sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]), g2p["seg"],
                           g2p["n_seg"])
     wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2, c=min(c, 12),
-                                distinct=True)
+                                distinct=True, tree=tree)
     wsum2 = _to_host_standard(G2, wsum2)
     stage("msm_g2")
 
-    pi_a, pi_b1, pi_c, pi_h = combine_multi_window_sums_host(wsum1, c1)
+    if not glv:
+        g1_pts = combine_multi_window_sums_host(wsum1, c1)
+    pi_a, pi_b1, pi_c, pi_h = g1_pts
     pi_b = combine_window_sums_host_g2(wsum2, c2)
     proof = _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
     stage("combine")

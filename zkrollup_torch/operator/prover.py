@@ -66,16 +66,19 @@ class PreparedBatch:
 
 class TxProver:
     """BatchProcessTx(batch, depth) prover with cached keys, proving on
-    `device` with Pippenger window `c`."""
+    `device` with Pippenger window `c`; glv and tree go to groth16.prove
+    (the GLV G1 MSMs, the bucket strategy)."""
 
     def __init__(self, cfg: RollupConfig, key_path: Optional[str] = None,
                  setup_seed: Optional[bytes] = None, *, device="cuda",
-                 c: int = 12):
+                 c: int = 12, glv: bool = False, tree: str = "scan"):
         self.cfg = cfg
         self.key_path = key_path
         self.setup_seed = setup_seed
         self.device = device
         self.c = c
+        self.glv = glv
+        self.tree = tree
         self.pk: Optional[ProvingKey] = None
         self.stats = ProveStats()
         self._r1cs = None
@@ -132,7 +135,8 @@ class TxProver:
         stages: Dict[str, float] = {}
         t0 = time.time()
         proof = prove(pk, self.structure_r1cs(), prep.witness, r=r, s=s,
-                      device=self.device, c=self.c, timings=stages)
+                      device=self.device, c=self.c, glv=self.glv,
+                      tree=self.tree, timings=stages)
         self.stats.prove_s = time.time() - t0
         self.stats.stages = stages
         t0 = time.time()
