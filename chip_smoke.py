@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (zkrollup_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab CSRC [--ab CSRC ...]
 
 Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
@@ -12,7 +13,10 @@ Phases; any failure raises and the script exits non-zero:
   2. every kernel instantiation against its plain PyTorch version on the
      card, bit for bit, at the main path's widths, with both times and the
      kernel's bound (the least time the card could take for the work);
-     the double also on one lane, the width of the MSM's Horner; the six
+     the double also on one lane, the width of the MSM's Horner; the two
+     paired G2 kernels (g2_madd_nd, g2_add) also at the prove path's lanes
+     per launch (timed there beside the bound at that width), on ragged
+     launches of 1, 22 and 33 lanes and on one lane (timed); the six
      integer-unit kernels at the width and reps of phase 7's rate run (and
      at a small width)
   3. setup on the card: TxProver for the default BatchProcessTx(2, 6)
@@ -38,13 +42,18 @@ Phases; any failure raises and the script exits non-zero:
      of every G2 kernel against zkrollup_torch.ref; then (the "curve" path)
      JacobianCurve.add_nd over G1, the method that reaches g1_add_nd,
      against zkrollup_torch.ref
-  8. the launch count of every kernel on each path (setup, the first proof,
-     the MSMs, the strategies, the GLV proof, the tools, the G1 add_nd),
-     each counted from 0 just before its path; each kernel of a path must
-     launch on it
+  8. the launch count and the lanes of every kernel on each path (setup,
+     the first proof, the MSMs, the strategies, the GLV proof, the tools,
+     the G1 add_nd), each counted from 0 just before its path; each kernel
+     of a path must launch on it
 The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
+
+With --ab, phases 0 and 1 only, then the paired G2 kernels of this
+checkout against the g2.cu of each CSRC directory (another commit's
+zkrollup_torch/csrc unpacked with `git archive`, or an edited copy of this
+one's): see ab_run. The last line is then one JSON object with the times.
 """
 
 import sys
@@ -141,6 +150,12 @@ ALU_OPS = {
     "mul16": (1, INT_MULS_PER_S), "umulhi": (1, INT_MULS_PER_S),
 }
 ALU_LOG_N, ALU_REPS = 19, 1024      # the rate run: (16, 2^19) lanes
+# lanes per launch of the paired G2 kernels on the prove path: msm.py's scan
+# over the (2, 6) b2 table (74,325 points padded to 2^17, c = 12: 22
+# windows, chunks of 128): the scan leg's 22 x 1024 lanes; the boundary add
+# over 22 x 4096 and the table-end subtraction over 22 x 4095 lanes
+PROVE_SHAPES = {"g2_madd_nd": (22_528,), "g2_add": (90_112, 90_090)}
+RAGGED = (1, 22, 33)
 
 
 def bound(products: float, nbytes: float):
@@ -181,6 +196,42 @@ def ptxas_report(logs: dict) -> dict:
     return out
 
 
+def check_pair_spill(ptxas: dict) -> None:
+    """Phase 1: the paired G2 kernels must build without spill."""
+    pair = {e: v for e, v in ptxas.items() if "pair_kernel" in e}
+    if len(pair) != len(PROVE_SHAPES):
+        raise AssertionError(f"expected the ptxas report of "
+                             f"{len(PROVE_SHAPES)} paired kernels, got "
+                             f"{sorted(pair)}")
+    spilled = {e: v for e, v in pair.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"paired G2 kernels spill (registers, bytes): "
+                             f"{spilled}")
+
+
+def check_prove_widths(prove: dict) -> None:
+    """Phase 8: PROVE_SHAPES, the widths at which phase 2 holds and times
+    the paired G2 kernels, must be the widest launches of the prove path."""
+    for name, shapes in PROVE_SHAPES.items():
+        widths = prove[name][2]
+        log(f"  {name} on prove, launches at each width: "
+            + ", ".join(f"{w} x {c}" for w, c in sorted(widths.items(),
+                                                        reverse=True)))
+        widest = tuple(sorted(widths, reverse=True)[:len(shapes)])
+        if widest != shapes:
+            raise AssertionError(f"{name}: the prove path's widest launches "
+                                 f"are {widest}, PROVE_SHAPES says {shapes}")
+
+
+def count_path(launches, path):
+    """launches[path][kernel] = (launches, lanes, {lanes a launch: launches})
+    since the last reset."""
+    from zkrollup_torch import kernels
+    launches[path] = {k: (kernels.LAUNCHES[k], kernels.LANES[k],
+                          dict(kernels.WIDTHS[k]))
+                      for k in kernels.LAUNCHES}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -213,7 +264,6 @@ def max_abs_err(got, want) -> int:
 
 def check_kernels(dev, results):
     """Phase 2: each kernel against its plain version on the card."""
-    import numpy as np
     import torch
     from zkrollup_torch.fields import limbs as L
     from zkrollup_torch.fields.mont import FR, FQ
@@ -221,7 +271,6 @@ def check_kernels(dev, results):
     from zkrollup_torch.curve import cuda_curve
     from zkrollup_torch.curve.g1 import G1
     from zkrollup_torch.curve.g2 import G2
-    from zkrollup_torch.native import engine
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -285,69 +334,11 @@ def check_kernels(dev, results):
                                       x0.clone()), 2) / 17,
            bound(n // 2, stage_bytes))
 
-    # curve kernels over 2^16 lanes of real points: affine tables from the
-    # native fixed-base engine, Jacobian operands with Z != 1 from plain adds
+    # curve kernels over 2^16 lanes of real points
     n = 1 << 16
-    rng = np.random.RandomState(SEED)
-    scal = [int(v) for v in rng.randint(1, 1 << 62, size=3 * n)]
-    for curve, fixed_base in ((G1, engine.g1_fixed_base_mont),
-                              (G2, engine.g2_fixed_base_mont)):
-        x, y, inf = fixed_base(engine.ints_to_fr_bytes(scal), 3 * n)
-        to_dev = lambda a: L.to_device(a, dev)
-        F = curve.F
-        if curve is G1:
-            x, y = to_dev(x), to_dev(y)
-        else:
-            x, y = (to_dev(x[0]), to_dev(x[1])), (to_dev(y[0]), to_dev(y[1]))
-        one = F.from_leaves([a.contiguous()
-                             for a in F.leaves(F.one((3 * n,), dev))])
-        aff = (x, y, one)          # Z = 1 points, three slices of n
-        part = lambda k: curve.map(lambda a: a[k * n:(k + 1) * n]
-                                   .contiguous(), aff)
-        q = part(0)
-        p = cuda_curve.add_plain(curve, part(1), part(2))   # Z != 1
-        inf_pt = curve.infinity((n,), dev)
-        neg_q = curve.neg(q)
-
-        def with_lanes(pp, qq, cases):
-            """pp, qq with the special lanes of `cases` (lane -> operands)
-            written in."""
-            pp = curve.map(lambda a: a.clone(), pp)
-            qq = curve.map(lambda a: a.clone(), qq)
-            for k, (sp, sq) in cases.items():
-                for d, s in zip(curve.leaves(pp), curve.leaves(sp)):
-                    d[k] = s[k]
-                for d, s in zip(curve.leaves(qq), curve.leaves(sq)):
-                    d[k] = s[k]
-            return pp, qq
-
-        # special lanes: 0 P + P, 1 P + (-P), 2 inf + Q, 3 P + inf,
-        # 4 inf + inf. add, madd, add_nd: every case (on P + P add_nd, a
-        # kernel without the doubling path, gives its own deterministic
-        # result outside its contract); madd_nd: all but P + P; double: p
-        # with the infinity lanes 2 and 4; add_z01: the same cases over
-        # operands with Z in {0, 1} only. Lane 0 (P + P) is the only lane
-        # on the doubling path of add, madd and add_z01.
-        lanes = {0: (q, q), 1: (q, neg_q), 2: (inf_pt, q), 3: (p, inf_pt),
-                 4: (inf_pt, inf_pt)}
-        pa, qa = with_lanes(p, q, lanes)
-        pm, qm = with_lanes(p, q, {k: v for k, v in lanes.items() if k})
-        p01 = part(1)
-        pz, qz = with_lanes(p01, q, {**lanes, 3: (p01, inf_pt)})
-        g = curve.name
-        for name, fn, plain, args, n_dbl in (
-                (f"{g}_madd_nd", cuda_curve.madd_nd,
-                 cuda_curve.madd_nd_plain, (pm, qm), 0),
-                (f"{g}_add", cuda_curve.add, cuda_curve.add_plain, (pa, qa),
-                 1),
-                (f"{g}_madd", cuda_curve.madd, cuda_curve.madd_plain,
-                 (pa, qa), 1),
-                (f"{g}_double", cuda_curve.double, cuda_curve.double_plain,
-                 (pa,), 0),
-                (f"{g}_add_nd", cuda_curve.add_nd, cuda_curve.add_nd_plain,
-                 (pa, qa), 0),
-                (f"{g}_add_z01", cuda_curve.add_z01,
-                 cuda_curve.add_z01_plain, (pz, qz), 1)):
+    for curve in (G1, G2):
+        ops = point_operands(curve, dev, n)
+        for name, (fn, plain, args, n_dbl) in ops.items():
             record(name, curve.leaves(fn(curve, *args)),
                    curve.leaves(plain(curve, *args)),
                    cuda_ms(lambda: fn(curve, *args), 20),
@@ -356,7 +347,8 @@ def check_kernels(dev, results):
 
         # the double as the MSM's Horner launches it, on one lane: an
         # infinity lane (2) and a finite one (5); timed on the finite lane
-        name = f"{g}_double"
+        name = f"{curve.name}_double"
+        pa = ops[name][2][0]
         for k in (2, 5):
             one = curve.map(lambda a: a[k:k + 1].contiguous(), pa)
             if max_abs_err(curve.leaves(cuda_curve.double(curve, one)),
@@ -368,6 +360,128 @@ def check_kernels(dev, results):
         results[name]["one_lane_ms"] = ms1
         log(f"  {name:13s} one lane (infinity and finite): max_abs_err 0  "
             f"kernel {ms1:.4f} ms")
+
+        if curve is G2:
+            for name in PROVE_SHAPES:
+                check_widths(curve, name, *ops[name][:3], results)
+
+
+def point_operands(curve, dev, n: int) -> dict:
+    """Phase 2's operands of the six point kernels of `curve`: {kernel: (fn,
+    plain, args, lanes on the doubling path)}, n lanes of real points:
+    affine tables from the native fixed-base engine, Jacobian operands with
+    Z != 1 from plain adds, the special lanes written in.
+
+    Special lanes: 0 P + P, 1 P + (-P), 2 inf + Q, 3 P + inf, 4 inf + inf.
+    add, madd, add_nd: every case (on P + P add_nd, a kernel without the
+    doubling path, gives its own deterministic result outside its
+    contract); madd_nd: all but P + P; double: p with the infinity lanes 2
+    and 4; add_z01: the same cases over operands with Z in {0, 1} only.
+    Lane 0 (P + P) is the only lane on the doubling path of add, madd and
+    add_z01."""
+    import numpy as np
+    from zkrollup_torch.curve import cuda_curve
+    from zkrollup_torch.curve.g1 import G1
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.native import engine
+
+    rng = np.random.RandomState(SEED)
+    scal = [int(v) for v in rng.randint(1, 1 << 62, size=3 * n)]
+    fixed_base = (engine.g1_fixed_base_mont if curve is G1
+                  else engine.g2_fixed_base_mont)
+    x, y, _ = fixed_base(engine.ints_to_fr_bytes(scal), 3 * n)
+    to_dev = lambda a: L.to_device(a, dev)
+    F = curve.F
+    if curve is G1:
+        x, y = to_dev(x), to_dev(y)
+    else:
+        x, y = (to_dev(x[0]), to_dev(x[1])), (to_dev(y[0]), to_dev(y[1]))
+    one = F.from_leaves([a.contiguous()
+                         for a in F.leaves(F.one((3 * n,), dev))])
+    aff = (x, y, one)          # Z = 1 points, three slices of n
+    part = lambda k: curve.map(lambda a: a[k * n:(k + 1) * n].contiguous(),
+                               aff)
+    q = part(0)
+    p = cuda_curve.add_plain(curve, part(1), part(2))   # Z != 1
+    inf_pt = curve.infinity((n,), dev)
+
+    def with_lanes(pp, qq, cases):
+        """pp, qq with the special lanes of `cases` (lane -> operands)
+        written in."""
+        pp = curve.map(lambda a: a.clone(), pp)
+        qq = curve.map(lambda a: a.clone(), qq)
+        for k, (sp, sq) in cases.items():
+            for d, s in zip(curve.leaves(pp), curve.leaves(sp)):
+                d[k] = s[k]
+            for d, s in zip(curve.leaves(qq), curve.leaves(sq)):
+                d[k] = s[k]
+        return pp, qq
+
+    lanes = {0: (q, q), 1: (q, curve.neg(q)), 2: (inf_pt, q),
+             3: (p, inf_pt), 4: (inf_pt, inf_pt)}
+    pa, qa = with_lanes(p, q, lanes)
+    pm, qm = with_lanes(p, q, {k: v for k, v in lanes.items() if k})
+    p01 = part(1)
+    pz, qz = with_lanes(p01, q, {**lanes, 3: (p01, inf_pt)})
+    g = curve.name
+    c = cuda_curve
+    return {
+        f"{g}_madd_nd": (c.madd_nd, c.madd_nd_plain, (pm, qm), 0),
+        f"{g}_add": (c.add, c.add_plain, (pa, qa), 1),
+        f"{g}_madd": (c.madd, c.madd_plain, (pa, qa), 1),
+        f"{g}_double": (c.double, c.double_plain, (pa,), 0),
+        f"{g}_add_nd": (c.add_nd, c.add_nd_plain, (pa, qa), 0),
+        f"{g}_add_z01": (c.add_z01, c.add_z01_plain, (pz, qz), 1),
+    }
+
+
+def take_lanes(curve, args, m: int, off: int = 0):
+    """(lanes off .. off + m - 1 of `args`, repeated past their length;
+    how many of them are lane 0, the one P == Q lane of the add)."""
+    import torch
+    n = curve.leaves(args[0])[0].shape[0]
+    idx = (torch.arange(m, device=curve.leaves(args[0])[0].device) + off) % n
+    return (tuple(curve.map(lambda a: a.index_select(0, idx), t)
+                  for t in args), int((idx == 0).sum()))
+
+
+def check_widths(curve, name, fn, plain, args, results):
+    """Phase 2, a paired G2 kernel beyond 2^16 lanes: bit for bit against
+    its plain version at the prove path's widths (PROVE_SHAPES), on ragged
+    launches (RAGGED, at two offsets) and on one lane (six lanes, the
+    special ones included); timed at the prove widths, beside the bound
+    there, and on one lane. Operands are lanes of `args` (2^16 lanes, lane
+    0 the only P == Q lane of the add), repeated past 2^16."""
+    n = curve.leaves(args[0])[0].shape[0]
+    take = lambda m, off=0: take_lanes(curve, args, m, off)
+
+    def same(sub):
+        return max_abs_err(curve.leaves(fn(curve, *sub)),
+                           curve.leaves(plain(curve, *sub)))
+
+    shapes = {}
+    for m in PROVE_SHAPES[name]:
+        sub, n_dbl = take(m)
+        err = same(sub)
+        ms = cuda_ms(lambda: fn(curve, *sub), 20)
+        bnd = lane_bound(name, m, n_dbl if name == "g2_add" else 0)
+        shapes[str(m)] = {"max_abs_err": err, "ms": ms, "bound_ms": bnd[0]}
+        log(f"  {name:13s} {m} lanes (prove): max_abs_err {err}  kernel "
+            f"{ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if err:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version at {m} lanes")
+    bad = [(m, off) for m in RAGGED for off in (0, n - 7)
+           if same(take(m, off)[0])]
+    bad += [(1, off) for off in range(6) if same(take(1, off)[0])]
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at (lanes, offset) {bad}")
+    one, _ = take(1, 5)
+    ms1 = cuda_ms(lambda: fn(curve, *one), 264)
+    results[name].update(shapes=shapes, one_lane_ms=ms1)
+    log(f"  {name:13s} ragged {RAGGED} lanes and one lane (lanes 0-5): "
+        f"max_abs_err 0; one lane {ms1:.4f} ms")
 
 
 def check_alu(dev, results):
@@ -441,7 +555,7 @@ def setup_phase(dev, launches):
     pk = prover.ensure_keys()
     torch.cuda.synchronize()
     card_s = time.time() - t0
-    launches["setup"] = dict(kernels.LAUNCHES)
+    count_path(launches, "setup")
     t0 = time.time()
     host = setup_host(r1cs, seed=SETUP_SEED)
     host_s = time.time() - t0
@@ -510,7 +624,7 @@ def main_path(dev, prover, launches):
     t0 = time.time()
     proof = prover.prove_prepared(prep, r=r0, s=s0)
     first_s = time.time() - t0
-    launches["prove"] = dict(kernels.LAUNCHES)
+    count_path(launches, "prove")
     log(f"  first proof on {dev} with the card-made key (self-verified): "
         f"{first_s:.3f} s {prover.stats.stages}")
 
@@ -605,7 +719,7 @@ def msm_phase(dev, pk, witness, launches):
         times[f"msm_{name}_scan"] = timed(
             f"msm({name.upper()}, c=12, distinct=False, tree='scan')", name,
             lambda: msm(curve, tbl, sc, c=12, distinct=False))
-    launches["msm"] = dict(kernels.LAUNCHES)
+    count_path(launches, "msm")
 
     kernels.reset_launches()
     for tree in ("scan1", "affine", "jacobian"):
@@ -617,7 +731,7 @@ def msm_phase(dev, pk, witness, launches):
         times[f"msm_glv_{tree}"] = timed(
             f"msm_glv(a_g1, c=12, tree={tree!r})", "g1",
             lambda: msm_glv(a_tbl, sc, c=12, tree=tree))
-    launches["msm_trees"] = dict(kernels.LAUNCHES)
+    count_path(launches, "msm_trees")
     return times
 
 
@@ -634,7 +748,7 @@ def glv_phase(dev, prover, prep, want_bytes, rs, launches):
     t0 = time.time()
     proof = gp.prove_prepared(prep, r=rs[0], s=rs[1])   # self-verifies
     first_s = time.time() - t0
-    launches["prove_glv"] = dict(kernels.LAUNCHES)
+    count_path(launches, "prove_glv")
     log(f"  first GLV proof (tree='jacobian', self-verified): {first_s:.3f} s"
         f"; stages " + ", ".join(f"{k} {v:.3f}"
                                  for k, v in gp.stats.stages.items()))
@@ -671,7 +785,7 @@ def tools_phase(dev, results, launches):
     g2_kernel_check.run(dev, log=lambda m: log("    " + m))
     log(f"  g2_kernel_check on {dev}: every G2 kernel equals "
         "zkrollup_torch.ref")
-    launches["tools"] = dict(kernels.LAUNCHES)
+    count_path(launches, "tools")
 
 
 def curve_path(dev, launches):
@@ -693,7 +807,7 @@ def curve_path(dev, launches):
     s2 = g1.G1.add(jac(q), jac(q))
     kernels.reset_launches()
     got = [g1.G1.add_nd(jac(p), jac(q)), g1.G1.add_nd(s1, s2)]
-    launches["curve"] = dict(kernels.LAUNCHES)
+    count_path(launches, "curve")
     sums = [ref.g1_add(a, b) for a, b in zip(p, q)]
     want = [sums, [ref.g1_add(a, ref.g1_add(b, b)) for a, b in zip(sums, q)]]
     if [g1.to_affine_host(g) for g in got] != want:
@@ -702,7 +816,68 @@ def curve_path(dev, launches):
         "zkrollup_torch.ref")
 
 
+def ab_run(dev, base: str) -> dict:
+    """--ab: g2_madd_nd and g2_add of this checkout against the g2.cu of
+    the csrc/ directory `base`, built with this checkout's nvcc flags into
+    a temporary directory and bound through the same wrappers (the C
+    signatures do not change). For each kernel, at 2^16 lanes with phase
+    2's special lanes, at PROVE_SHAPES and on one lane: both builds bit for
+    bit against the plain version, then timed in turns, base, this, this,
+    base (cuda_ms, 20 calls, 264 on one lane)."""
+    import tempfile
+    from zkrollup_torch import kernels
+    from zkrollup_torch.curve.g2 import G2
+
+    libs = kernels.load()
+    own = libs["g2"]
+    ops = point_operands(G2, dev, 1 << 16)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "g2.so")
+        proc = subprocess.run(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
+             os.path.join(base, "g2.cu")], capture_output=True, text=True)
+        with open(os.path.join(tmp, "g2.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {base}/g2.cu:\n"
+                               f"{proc.stderr[-4000:]}")
+        ptxas = ptxas_report({"g2": os.path.join(tmp, "g2.log")})
+        for entry, (regs, spill) in sorted(ptxas.items()):
+            log(f"    base {entry}: {regs} registers, {spill} bytes spill "
+                "stores")
+        builds = {"base": kernels.bind("g2", so), "this": own}
+        try:
+            for name in PROVE_SHAPES:
+                fn, plain, args, _ = ops[name]
+                for m in (1 << 16, *PROVE_SHAPES[name], 1):
+                    sub, _ = take_lanes(G2, args, m, 5 if m == 1 else 0)
+                    want = G2.leaves(plain(G2, *sub))
+                    ms = {"base": [], "this": []}
+                    for b in ("base", "this", "this", "base"):
+                        libs["g2"] = builds[b]
+                        if max_abs_err(G2.leaves(fn(G2, *sub)), want):
+                            raise AssertionError(
+                                f"{name} ({b} build) disagrees with its "
+                                f"plain version at {m} lanes")
+                        ms[b].append(cuda_ms(lambda: fn(G2, *sub),
+                                             264 if m == 1 else 20))
+                    rows.append({"kernel": name, "lanes": m, **ms})
+                    log(f"  {name:11s} {m:6d} lanes: base "
+                        + " ".join(f"{t:.4f}" for t in ms["base"])
+                        + " ms, this "
+                        + " ".join(f"{t:.4f}" for t in ms["this"]) + " ms")
+        finally:
+            libs["g2"] = own
+    return {"base": base, "ptxas": ptxas, "rows": rows}
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab", metavar="CSRC", action="append", default=[],
+                    help="time the paired G2 kernels against CSRC/g2.cu")
+    opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "zkrollup_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
@@ -728,12 +903,23 @@ def main() -> int:
     log(f"  CUDA kernels: {time.time() - t0:.1f} s, {len(info['built'])} of "
         f"{len(kernels.UNITS)} units built by parallel nvcc processes "
         f"({os.path.dirname(info['paths']['fields'])})")
-    for entry, (regs, spill) in sorted(ptxas_report(info["logs"]).items()):
+    ptxas = ptxas_report(info["logs"])
+    for entry, (regs, spill) in sorted(ptxas.items()):
         log(f"    {entry}: {regs} registers, {spill} bytes spill stores")
+    check_pair_spill(ptxas)
     t0 = time.time()
     if not engine.available():
         raise RuntimeError("the native engine did not build (g++, native/src)")
     log(f"  native engine: {time.time() - t0:.1f} s ({engine._LIB_PATH})")
+
+    if opts.ab:
+        out = []
+        for base in opts.ab:
+            log(f"A/B against {base}")
+            out.append(ab_run(dev, base))
+        log(smi)
+        print(json.dumps({"ab": out}))
+        return 0
 
     log("phase 2: kernels against their plain versions")
     results = {}
@@ -759,17 +945,22 @@ def main() -> int:
     tools_phase(dev, results, launches)
     curve_path(dev, launches)
 
-    log("phase 8: launches on each path")
-    log(f"  {'kernel':14s} " + " ".join(f"{p:>9s}" for p in PATHS))
+    log("phase 8: launches, and lanes per launch, on each path")
+    log(f"  {'kernel':14s} " + " ".join(f"{p:>19s}" for p in PATHS))
     for k in KERNELS:
-        log(f"  {k:14s} " + " ".join(f"{launches[p][k]:9d}" for p in PATHS))
+        cells = []
+        for p in PATHS:
+            count, lanes, _ = launches[p][k]
+            cells.append(f"{count:7d} x {lanes / max(1, count):9.1f}")
+        log(f"  {k:14s} " + " ".join(cells))
+    check_prove_widths(launches["prove"])
     missing = [(p, k) for p, ks in PATHS.items() for k in ks
-               if launches[p][k] <= 0]
+               if launches[p][k][0] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on their path: "
                              f"{missing}")
     unlaunched = [k for k in KERNELS
-                  if not any(launches[p][k] for p in PATHS)]
+                  if not any(launches[p][k][0] for p in PATHS)]
     if unlaunched:
         raise AssertionError(f"kernels launched on no path: {unlaunched}")
     loaded = [m for m, v in sys.modules.items() if v is not None and (
@@ -781,8 +972,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1],
-         "launches": sum(launches[p][k] for p in PATHS),
-         "launches_by_path": {p: launches[p][k] for p in PATHS},
+         "launches": sum(launches[p][k][0] for p in PATHS),
+         "launches_by_path": {p: launches[p][k][0] for p in PATHS},
+         "lanes_by_path": {p: launches[p][k][1] for p in PATHS},
          **results[k]} for k in KERNELS]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

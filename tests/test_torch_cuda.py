@@ -153,10 +153,23 @@ def test_point_kernels_match_plain(cuda_device, name):
                  for f in (cuda_curve.add_z01, cuda_curve.add_z01_plain))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     # the no-double mixed add: every lane but P + P (its contract)
-    p, q = (curve.map(lambda a: a[1:].contiguous(), t) for t in (p, q))
-    got, want = (curve.leaves(f(curve, p, q))
+    pm, qm = (curve.map(lambda a: a[1:].contiguous(), t) for t in (p, q))
+    got, want = (curve.leaves(f(curve, pm, qm))
                  for f in (cuda_curve.madd_nd, cuda_curve.madd_nd_plain))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the add and the no-double mixed add (two threads a lane over G2) at
+    # odd and tiny lane counts, where a ragged edge cuts a warp: the lanes
+    # above, repeated
+    for m in (1, 22, 33, 1025):
+        for f, plain, args in ((cuda_curve.add, cuda_curve.add_plain, (p, q)),
+                               (cuda_curve.madd_nd, cuda_curve.madd_nd_plain,
+                                (pm, qm))):
+            n = curve.leaves(args[0])[0].shape[0]
+            idx = torch.arange(m, device=cuda_device) % n
+            sub = [curve.map(lambda a: a.index_select(0, idx), t)
+                   for t in args]
+            got, want = (curve.leaves(g(curve, *sub)) for g in (f, plain))
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), m
 
 
 def _z01_operand(curve, q):

@@ -25,10 +25,13 @@ struct PointArgs {
   int32_t* out[6];        // X3 Y3 Z3, K planes each
 };
 
-// Store one lane's result X3 Y3 Z3.
+// Store one lane's result X3 Y3 Z3, unless the lane is not live (a thread
+// past the ragged edge of a paired kernel, which computes on a clamped
+// lane so that every thread reaches the shuffles, and stores nothing).
 template <class E>
-ZKT_HD void store3(const PointArgs& args, int64_t i, const E& X3,
+ZKT_HD void store3(const PointArgs& args, int64_t i, bool live, const E& X3,
                    const E& Y3, const E& Z3) {
+  if (!live) return;
   using P = Planes<E>;
   constexpr int K = P::K;
   P::store(args.out + 0 * K, i, X3);
@@ -70,7 +73,7 @@ ZKT_HD void jac_double_lane(const PointArgs& args, int64_t i) {
           Z = P::load(args.in + 2 * K, i);
   E X3, Y3, Z3;
   jac_double(X3, Y3, Z3, X, Y, Z);
-  store3(args, i, X3, Y3, Z3);
+  store3(args, i, true, X3, Y3, Z3);
 }
 
 // The tail every add shares: from H = U2 - U1 and R = S2 - S1,
@@ -125,7 +128,8 @@ ZKT_HD void inf_selects(E& X3, E& Y3, E& Z3, bool to_inf, bool p_inf,
 // masks, branch-free (pallas_curve.py:_add_kernel). Infinity is Z = 0; on
 // P + (-P) only Z is zeroed, as in the Pallas kernel.
 template <class E>
-ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i) {
+ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i,
+                         bool live = true) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
@@ -147,7 +151,7 @@ ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i) {
   }
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
-  store3(args, i, X3, Y3, Z3);
+  store3(args, i, live, X3, Y3, Z3);
 }
 
 // Jacobian add WITHOUT the doubling path (pallas_curve.py:_add_nd_kernel,
@@ -169,7 +173,7 @@ ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i) {
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool to_inf = H.is_zero() && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
-  store3(args, i, X3, Y3, Z3);
+  store3(args, i, true, X3, Y3, Z3);
 }
 
 // Unified add for operands whose Z is 0 or 1 EXACTLY (affine points or
@@ -205,7 +209,7 @@ ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i) {
   }
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
-  store3(args, i, X3, Y3, Z3);
+  store3(args, i, true, X3, Y3, Z3);
 }
 
 // The madd-2007-bl add path of P (Jacobian) + (x2, y2) taken with Z2 = 1:
@@ -228,7 +232,8 @@ ZKT_HD void madd_add_path(E& X3, E& Y3, E& Z3, E& H, E& R, const E& X1,
 // with NO doubling path (pallas_curve.py:_make_madd_kernel(True)). Wrong when
 // P == Q: callers use it only where the operands are distinct points.
 template <class E>
-ZKT_HD void jac_madd_nd_lane(const PointArgs& args, int64_t i) {
+ZKT_HD void jac_madd_nd_lane(const PointArgs& args, int64_t i,
+                             bool live = true) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
@@ -241,7 +246,7 @@ ZKT_HD void jac_madd_nd_lane(const PointArgs& args, int64_t i) {
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool to_inf = H.is_zero() && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, x2, y2, Z2);
-  store3(args, i, X3, Y3, Z3);
+  store3(args, i, live, X3, Y3, Z3);
 }
 
 // Mixed add P (Jacobian) + Q (Z2 in {0, 1}: affine or infinity) WITH the
@@ -272,7 +277,7 @@ ZKT_HD void jac_madd_lane(const PointArgs& args, int64_t i) {
   }
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, x2, y2, Z2);
-  store3(args, i, X3, Y3, Z3);
+  store3(args, i, true, X3, Y3, Z3);
 }
 
 }  // namespace zkt

@@ -1,8 +1,10 @@
 // The zkrollup_torch point kernels: six templates over the coordinate field
-// E (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu), one launch function each.
+// E (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu), one launch function each,
+// and two of them again over Fq2Pair, two threads a G2 lane (g2.cu's
+// g2_add and g2_madd_nd).
 //
-//   jac_add<E>      replaces pallas_curve.py:g1_add (_add_kernel) and
-//                   pallas_curve_g2.py:g2_add
+//   jac_add<E>      replaces pallas_curve.py:g1_add (_add_kernel); over
+//                   Fq2Pair (jac_add_pair) pallas_curve_g2.py:g2_add
 //   jac_add_nd<E>   replaces pallas_curve.py:g1_add_nd (_add_nd_kernel) and
 //                   pallas_curve_g2.py:g2_add_nd
 //   jac_add_z01<E>  replaces pallas_curve.py:g1_add_z01 (_add_z01_kernel);
@@ -10,16 +12,17 @@
 //                   weierstrass.py:_add_z01_generic, which has no Pallas
 //                   kernel (it differs from that glue in limbs on P + (-P)
 //                   lanes only, where the kernel zeroes Z alone)
-//   jac_madd_nd<E>  replaces pallas_curve.py:g1_madd_nd and g2_madd_nd
+//   jac_madd_nd<E>  replaces pallas_curve.py:g1_madd_nd; over Fq2Pair
+//                   (jac_madd_nd_pair) pallas_curve_g2.py:g2_madd_nd
 //   jac_madd<E>     replaces pallas_curve.py:g1_madd
 //                   (_make_madd_kernel(False)) and g2_madd
 //   jac_double<E>   replaces pallas_curve.py:g1_double (_double_kernel) and
 //                   g2_double
 //
-// One thread per lane: load 16-bit limbs from the (n, 16) int32 storage,
-// pack them into 8 words in registers, compute, unpack, store. Nothing is
-// shared between lanes, so the TPU kernels' (16, TILE) blocking has no
-// counterpart here.
+// One thread per lane (two for the Fq2Pair kernels): load 16-bit limbs from
+// the (n, 16) int32 storage, pack them into 8 words in registers, compute,
+// unpack, store. Nothing is shared between lanes, so the TPU kernels'
+// (16, TILE) blocking has no counterpart here.
 //
 // What bounds them on the H100: the 32-bit multiply rate (one CIOS
 // product is 264 mad.lo/mad.hi/mul.lo instructions; a point add is 11-16
@@ -37,18 +40,24 @@
 // of 16 int32 limbs, half of each word zero. The kernels are branch-free,
 // so every lane also computes the doubling path. At 64 multiplies per SM
 // per clock every point kernel is multiply-bound on the packed bytes; the
-// G1 double and the G1 add_z01 come closest to the balance point. Register
-// pressure is the other limit: a G1 point add holds ~10 live field
-// elements (80 registers); the Fq2 add holds twice that and spills to
-// local memory. The point kernels cap blocks at 128 threads
-// (__launch_bounds__) and accept the spill rather than split the formula
-// across launches: the spill stays in L1 and no intermediate goes to
-// device memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add<Fq2> 255
-// registers and 172 bytes of spill stores, jac_add_nd<Fq2> and
-// jac_add_z01<Fq2> 255 and 60 bytes each, jac_madd<Fq2> 255 and 20 bytes,
-// jac_madd_nd<Fq2> 255 and 16 bytes, jac_double<Fq2> 137; over Fq jac_add
+// G1 double and the G1 add_z01 come closest to the balance point.
+//
+// Register pressure and latency are the other limit. A G1 point add holds
+// ~10 live field elements (80 registers); one thread computing an Fq2 add
+// holds twice that, reaches 255 registers and spills, so an SM holds 8
+// warps, each on a long serial chain of 3 CIOS products an Fq2 product.
+// The one-thread kernels cap blocks at 128 threads (__launch_bounds__) and
+// accept the spill: it stays in L1 and no intermediate goes to device
+// memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> and
+// jac_add_z01<Fq2> 255 registers and 60 bytes of spill stores each,
+// jac_madd<Fq2> 255 and 20 bytes, jac_double<Fq2> 137; over Fq jac_add
 // 131, jac_add_nd 142, jac_add_z01 127, jac_madd 128, jac_madd_nd 123,
-// jac_double 64, none of them spilling.)
+// jac_double 64, none of them spilling. jac_add<Fq2> and jac_madd_nd<Fq2>,
+// which g2.cu no longer builds, took 255 and spilled 172 and 16 bytes.)
+// The Fq2Pair kernels (fq2_pair.cuh) halve both: 8 registers a value and
+// half the chain a thread, each Fq2 product one Montgomery reduction of
+// two unreduced products; their launch bounds and ptxas figures are in
+// g2.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +67,7 @@
 #include "capi.cuh"
 #include "curve.cuh"
 #include "field.cuh"
+#include "fq2_pair.cuh"
 
 namespace zkt {
 
@@ -75,6 +85,25 @@ ZKT_POINT_KERNEL(jac_madd_nd_kernel, jac_madd_nd_lane)
 ZKT_POINT_KERNEL(jac_madd_kernel, jac_madd_lane)
 ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 #undef ZKT_POINT_KERNEL
+
+// A kernel of two threads a lane over Fq2Pair, lane i on threads 2i and
+// 2i+1. Past the ragged edge a thread computes lane n - 1 again, so that
+// every thread of a warp reaches the shuffles, and stores nothing.
+// Launch bounds from ptxas -v for sm_90a (chip_smoke.py phase 1): at 128
+// threads a block and 3 blocks an SM (12 warps) both paired kernels fit
+// with no spill (g2.cu). A block is whole warps, so every warp is full
+// and both threads of a pair sit in one warp.
+constexpr int PAIR_THREADS = 128;
+constexpr int PAIR_MIN_BLOCKS = 3;
+static_assert(PAIR_THREADS % 32 == 0,
+              "a paired kernel's block must be whole warps");
+#define ZKT_PAIR_KERNEL(NAME, LANE)                                          \
+  __global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)           \
+      NAME(PointArgs args, int64_t n) {                                      \
+    const int64_t i =                                                        \
+        (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 1;               \
+    LANE<Fq2Pair>(args, i < n ? i : n - 1, i < n);                           \
+  }
 
 // n_in: input points (2 for the adds, 1 for the double)
 template <class E>
@@ -99,40 +128,37 @@ int launch_point(PointKernel kernel, int n_in, void* const* in,
   return int(cudaGetLastError());
 }
 
+// The launch of an Fq2Pair kernel: 2n threads, PAIR_THREADS a block.
+inline int launch_pair(PointKernel kernel, int n_in, void* const* in,
+                       void* const* out, int64_t n, void* stream) {
+  if (n > 0)
+    kernel<<<blocks_for(2 * n, PAIR_THREADS), PAIR_THREADS, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        point_args<Fq2Pair>(in, out, n_in), n);
+  return int(cudaGetLastError());
+}
+
 }  // namespace zkt
 
-// The C entry points of one curve: zkt_<G>_<kernel>(in, out, n, stream),
-// with in and out arrays of coordinate plane pointers.
-#define ZKT_CURVE_API(G, E)                                                \
-  extern "C" {                                                             \
-  int zkt_##G##_add(void* const* in, void* const* out, int64_t n,          \
-                    void* stream) {                                        \
-    return zkt::launch_point<E>(zkt::jac_add_kernel<E>, 2, in, out, n,     \
-                                stream);                                   \
-  }                                                                        \
-  int zkt_##G##_add_nd(void* const* in, void* const* out, int64_t n,       \
-                       void* stream) {                                     \
-    return zkt::launch_point<E>(zkt::jac_add_nd_kernel<E>, 2, in, out, n,  \
-                                stream);                                   \
-  }                                                                        \
-  int zkt_##G##_add_z01(void* const* in, void* const* out, int64_t n,      \
-                        void* stream) {                                    \
-    return zkt::launch_point<E>(zkt::jac_add_z01_kernel<E>, 2, in, out, n, \
-                                stream);                                   \
-  }                                                                        \
-  int zkt_##G##_madd_nd(void* const* in, void* const* out, int64_t n,      \
-                        void* stream) {                                    \
-    return zkt::launch_point<E>(zkt::jac_madd_nd_kernel<E>, 2, in, out, n, \
-                                stream);                                   \
-  }                                                                        \
-  int zkt_##G##_madd(void* const* in, void* const* out, int64_t n,         \
-                     void* stream) {                                       \
-    return zkt::launch_point<E>(zkt::jac_madd_kernel<E>, 2, in, out, n,    \
-                                stream);                                   \
-  }                                                                        \
-  int zkt_##G##_double(void* const* in, void* const* out, int64_t n,       \
-                       void* stream) {                                     \
-    return zkt::launch_point<E>(zkt::jac_double_kernel<E>, 1, in, out, n,  \
-                                stream);                                   \
-  }                                                                        \
+// One C entry point: zkt_<G>_<NAME>(in, out, n, stream), with in and out
+// arrays of coordinate plane pointers; LAUNCH is launch_point<E> or
+// launch_pair, KERNEL its kernel, N_IN its input points (2 for the adds, 1
+// for the double).
+#define ZKT_POINT_API(G, NAME, LAUNCH, KERNEL, N_IN)                        \
+  extern "C" int zkt_##G##_##NAME(void* const* in, void* const* out,        \
+                                  int64_t n, void* stream) {                \
+    return LAUNCH(KERNEL, N_IN, in, out, n, stream);                        \
   }
+
+// The six entry points of one curve, one thread a lane, over E.
+#define ZKT_CURVE_API(G, E)                                                 \
+  ZKT_POINT_API(G, add, zkt::launch_point<E>, zkt::jac_add_kernel<E>, 2)   \
+  ZKT_POINT_API(G, add_nd, zkt::launch_point<E>,                           \
+                zkt::jac_add_nd_kernel<E>, 2)                               \
+  ZKT_POINT_API(G, add_z01, zkt::launch_point<E>,                          \
+                zkt::jac_add_z01_kernel<E>, 2)                              \
+  ZKT_POINT_API(G, madd_nd, zkt::launch_point<E>,                          \
+                zkt::jac_madd_nd_kernel<E>, 2)                              \
+  ZKT_POINT_API(G, madd, zkt::launch_point<E>, zkt::jac_madd_kernel<E>, 2) \
+  ZKT_POINT_API(G, double, zkt::launch_point<E>,                           \
+                zkt::jac_double_kernel<E>, 1)

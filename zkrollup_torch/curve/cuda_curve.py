@@ -188,7 +188,7 @@ def _launch_point(name: str, curve, *points):
         in_arr = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
         out_arr = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
         kernels.launch(name, ins[0].device, ctypes.addressof(in_arr),
-                       ctypes.addressof(out_arr), n)
+                       ctypes.addressof(out_arr), n, lanes=n)
     return curve.from_leaves(outs)
 
 

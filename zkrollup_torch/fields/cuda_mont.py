@@ -78,8 +78,9 @@ def mont_mul(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.device != a.device:
         raise ValueError("mont_mul: operands on different devices")
     out = torch.empty_like(a)
+    n = a.numel() // N_LIMBS
     kernels.launch(f"mont_mul[{field.name}]", a.device, a.data_ptr(),
-                   b.data_ptr(), bcast, out.data_ptr(), a.numel() // N_LIMBS)
+                   b.data_ptr(), bcast, out.data_ptr(), n, lanes=n)
     return out
 
 
@@ -100,4 +101,4 @@ def ntt_stage_(field, x: torch.Tensor, tw: torch.Tensor, m: int) -> None:
     if tw.device != x.device:
         raise ValueError("ntt stage: x and twiddles on different devices")
     kernels.launch("butterfly", x.device, x.data_ptr(), tw.data_ptr(),
-                   n // 2, m)
+                   n // 2, m, lanes=n // 2)

@@ -8,13 +8,15 @@ sources, so an edited source rebuilds and an unchanged one loads in
 milliseconds.
 
 Every launch goes through `launch`, which passes PyTorch's current stream,
-raises on a non-zero cudaGetLastError() and adds one to the kernel's count
-in LAUNCHES. The wrappers that call it live beside their plain PyTorch
-versions (fields/cuda_mont.py, curve/cuda_curve.py, tools/profile_alu.py).
+raises on a non-zero cudaGetLastError(), adds one to the kernel's count in
+LAUNCHES, its lanes (the launch's work items) to its sum in LANES and one
+to the count of that width in WIDTHS. The wrappers that call it live beside their plain PyTorch versions
+(fields/cuda_mont.py, curve/cuda_curve.py, tools/profile_alu.py).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -29,7 +31,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # source unit -> its .cu file; every unit includes some of the headers
 UNITS = {"fields": "fields.cu", "g1": "g1.cu", "g2": "g2.cu",
          "alu": "alu.cu"}
-_HEADERS = ("capi.cuh", "field.cuh", "curve.cuh", "points.cuh")
+_HEADERS = ("capi.cuh", "field.cuh", "fq2_pair.cuh", "curve.cuh",
+            "points.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "..", "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,8 +55,11 @@ _SIGS = {
                   "umulhi")},
 }
 
-# launches per kernel since the last reset_launches()
+# launches per kernel since the last reset_launches(), their lanes, and
+# the launches at each width (lanes a launch)
 LAUNCHES = {name: 0 for name in _SIGS}
+LANES = {name: 0 for name in _SIGS}
+WIDTHS = {name: collections.Counter() for name in _SIGS}
 
 _libs = None
 _lock = threading.Lock()
@@ -63,6 +69,8 @@ build_info = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LANES[k] = 0
+        WIDTHS[k].clear()
 
 
 def _nvcc() -> str:
@@ -125,28 +133,36 @@ def build() -> dict:
     return paths
 
 
+def bind(unit: str, path: str) -> ctypes.CDLL:
+    """Load a built library of source unit `unit` and declare the C
+    signatures of its entry points."""
+    lib = ctypes.CDLL(path)
+    for u, sym, argtypes in _SIGS.values():
+        if u == unit:
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.zkt_set_device.argtypes = [ctypes.c_int]
+    lib.zkt_set_device.restype = ctypes.c_int
+    lib.zkt_error_string.argtypes = [ctypes.c_int]
+    lib.zkt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> dict:
     """The kernel libraries, {unit: ctypes.CDLL}, built on first use."""
     global _libs
     with _lock:
         if _libs is None:
-            libs = {u: ctypes.CDLL(p) for u, p in build().items()}
-            for unit, sym, argtypes in _SIGS.values():
-                fn = getattr(libs[unit], sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            for lib in libs.values():
-                lib.zkt_set_device.argtypes = [ctypes.c_int]
-                lib.zkt_set_device.restype = ctypes.c_int
-                lib.zkt_error_string.argtypes = [ctypes.c_int]
-                lib.zkt_error_string.restype = ctypes.c_char_p
-            _libs = libs
+            _libs = {u: bind(u, p) for u, p in build().items()}
     return _libs
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, lanes: int) -> None:
     """Launch kernel `name` on `device`'s current PyTorch stream. `args` are
-    the kernel's arguments before the stream (data pointers as ints)."""
+    the kernel's arguments before the stream (data pointers as ints);
+    `lanes` is the launch's count of work items (points, products,
+    butterflies), summed in LANES and counted by width in WIDTHS."""
     unit, sym, _ = _SIGS[name]
     lib = load()[unit]
     rc = lib.zkt_set_device(device.index or 0)
@@ -157,6 +173,8 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name}: error {rc} "
                            f"({lib.zkt_error_string(rc).decode()})")
     LAUNCHES[name] += 1
+    LANES[name] += lanes
+    WIDTHS[name][lanes] += 1
 
 
 def check_cuda(t: torch.Tensor, what: str, last_dim: int = 16) -> None:

@@ -103,7 +103,7 @@ def alu(name: str, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"alu: reps {reps} out of range")
     out = torch.empty_like(a)
     kernels.launch(f"alu_{name}", a.device, a.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), n, reps)
+                   out.data_ptr(), n, reps, lanes=ROWS * n)
     return out
 
 
