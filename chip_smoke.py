@@ -7,15 +7,18 @@
 Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
   1. build the CUDA kernels (four nvcc processes at once, one per source of
-     zkrollup_torch/csrc, with each kernel's registers and spill from the
-     ptxas report) and the native host engine (g++, from native/src into
+     zkrollup_torch/csrc, with each kernel's registers, spill and stack
+     frame from the ptxas report; the four kernels of the prove path's MSMs
+     with launch bounds, g1_add, g1_madd_nd, g2_add and g2_madd_nd, must
+     not spill) and the native host engine (g++, from native/src into
      build/native), with seconds
   2. every kernel instantiation against its plain PyTorch version on the
      card, bit for bit, at the main path's widths, with both times and the
      kernel's bound (the least time the card could take for the work);
-     the double also on one lane, the width of the MSM's Horner; the two
-     paired G2 kernels (g2_madd_nd, g2_add) also at the prove path's lanes
-     per launch (timed there beside the bound at that width), on ragged
+     the double also on one lane, the width of the MSM's Horner; the four
+     point kernels of PROVE_SHAPES (g1_madd_nd, g1_add, g2_madd_nd,
+     g2_add) also at the prove path's lanes per launch (timed there beside
+     the bound at that width; the G1 two also at WAVE_LANES), on ragged
      launches of 1, 22 and 33 lanes and on one lane (timed); the six
      integer-unit kernels at the width and reps of phase 7's rate run (and
      at a small width)
@@ -27,7 +30,12 @@ Phases; any failure raises and the script exits non-zero:
      rollup, one proof with the card-made key at pinned (r, s) that must
      self-verify and equal the native engine's proof byte for byte, the
      expected final balances, then three proofs at random (r, s), each
-     self-verified
+     self-verified; then one more proof at the pinned (r, s) whose G1 add
+     and madd_nd operands are kept (cuda_curve's wrappers are wrapped in
+     this script for that proof only): for each g1_add launch the share of
+     lanes and of 32-lane warps on the doubling path, then g1_add at its
+     two widest launches and g1_madd_nd at one launch, on those operands,
+     bit for bit against the plain versions and timed beside the bound
   5. the MSMs over the key's a table (with its duplicate points and
      infinity rows) and its undeduplicated b2 table, against the native
      engine's Pippenger over the same tables, as affine points: msm() with
@@ -50,10 +58,11 @@ The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
 
-With --ab, phases 0 and 1 only, then the paired G2 kernels of this
-checkout against the g2.cu of each CSRC directory (another commit's
-zkrollup_torch/csrc unpacked with `git archive`, or an edited copy of this
-one's): see ab_run. The last line is then one JSON object with the times.
+With --ab, phases 0 and 1 only, then the four point kernels of
+PROVE_SHAPES of this checkout against those built from each CSRC directory
+(another commit's zkrollup_torch/csrc unpacked with `git archive`, or an
+edited copy of this one's), on phase 2's operands and on one proof's own:
+see ab_run. The last line is then one JSON object with the times.
 """
 
 import sys
@@ -71,6 +80,7 @@ import time  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 SETUP_SEED = b"chip-smoke"
+PINNED_RS = (0x1234567, 0x7654321)   # (r, s) of the proofs held to bytes
 
 _CSRC = "zkrollup_torch/csrc/"
 _PC = "zkrollup/curve/pallas_curve.py:"
@@ -150,12 +160,26 @@ ALU_OPS = {
     "mul16": (1, INT_MULS_PER_S), "umulhi": (1, INT_MULS_PER_S),
 }
 ALU_LOG_N, ALU_REPS = 19, 1024      # the rate run: (16, 2^19) lanes
-# lanes per launch of the paired G2 kernels on the prove path: msm.py's scan
-# over the (2, 6) b2 table (74,325 points padded to 2^17, c = 12: 22
-# windows, chunks of 128): the scan leg's 22 x 1024 lanes; the boundary add
-# over 22 x 4096 and the table-end subtraction over 22 x 4095 lanes
-PROVE_SHAPES = {"g2_madd_nd": (22_528,), "g2_add": (90_112, 90_090)}
+# lanes per launch of the MSMs' point kernels on the prove path, the widest
+# of each (c = 12: 22 windows, chunks of 128 points). G1, the four a, b1,
+# c and h tables as one MSM of 3,386 chunks and 4 x 4,096 buckets: the
+# scan leg's 22 x 3,386 lanes; the boundary add over 22 x 4 x 4,096 and
+# the table-end subtraction over 22 x 4 x 4,095 lanes. G2, the b2 table
+# (74,325 points padded to 2^17): 22 x 1,024; 22 x 4,096 and 22 x 4,095.
+PROVE_SHAPES = {"g1_madd_nd": (74_492,), "g1_add": (360_448, 360_360),
+                "g2_madd_nd": (22_528,), "g2_add": (90_112, 90_090)}
+# one wave of the one-thread G1 kernels at 16 warps an SM: 132 x 512 lanes
+WAVE_LANES = 67_584
 RAGGED = (1, 22, 33)
+# kernel entries with launch bounds of 128 threads and this many blocks an
+# SM (csrc/g1.cu, csrc/points.cuh's PAIR_MIN_BLOCKS); phase 1 fails if one
+# of them is missing from the ptxas report, spills, or takes more
+# registers than that many blocks leave
+MIN_BLOCKS = {"g1_add_kernel": 3, "g1_madd_nd_kernel": 4,
+              "jac_add_pair_kernel": 3, "jac_madd_nd_pair_kernel": 3}
+# the g1_madd_nd launch of a proof whose operands phase 4 keeps: the middle
+# step of the scan leg's 127 (the accumulator a sum of 64 points)
+MADD_ND_KEPT = 63
 
 
 def bound(products: float, nbytes: float):
@@ -182,36 +206,68 @@ def alu_bound(op: str, n: int, reps: int):
 
 
 def ptxas_report(logs: dict) -> dict:
-    """{kernel entry: (registers, spill store bytes)} from nvcc's -Xptxas -v
-    output of each unit's build log."""
+    """{function: (registers, spill store bytes, stack frame bytes)} from
+    nvcc's -Xptxas -v output of each unit's build log; registers are None
+    for a called device function, whose registers count in its caller's."""
     import re
     out = {}
     for path in logs.values():
         with open(path) as f:
             text = f.read()
-        for m in re.finditer(
-                r"Compiling entry function '(\S+)'.*?(\d+) bytes spill "
-                r"stores.*?Used (\d+) registers", text, re.S):
-            out[m.group(1)] = (int(m.group(3)), int(m.group(2)))
+        regs = {m.group(1): int(m.group(2)) for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?Used (\d+) registers", text,
+            re.S)}
+        for m in re.finditer(r"Function properties for (\S+)\s+(\d+) bytes "
+                             r"stack frame, (\d+) bytes spill stores", text):
+            out[m.group(1)] = (regs.get(m.group(1)), int(m.group(3)),
+                               int(m.group(2)))
     return out
 
 
-def check_pair_spill(ptxas: dict) -> None:
-    """Phase 1: the paired G2 kernels must build without spill."""
-    pair = {e: v for e, v in ptxas.items() if "pair_kernel" in e}
-    if len(pair) != len(PROVE_SHAPES):
-        raise AssertionError(f"expected the ptxas report of "
-                             f"{len(PROVE_SHAPES)} paired kernels, got "
-                             f"{sorted(pair)}")
-    spilled = {e: v for e, v in pair.items() if v[1]}
-    if spilled:
-        raise AssertionError(f"paired G2 kernels spill (registers, bytes): "
-                             f"{spilled}")
+def resident_warps(regs: int) -> int:
+    """Warps an H100 SM holds of a kernel of 128-thread blocks at `regs`
+    registers a thread: 64K registers an SM, allocated per warp in units of
+    256, whole blocks of 4 warps, at most 64 warps."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(64, 65536 // per_warp // 4 * 4)
+
+
+def log_ptxas(ptxas: dict, prefix: str = "") -> None:
+    for entry, (regs, spill, stack) in sorted(ptxas.items()):
+        what = ("called function" if regs is None
+                else f"{regs} registers ({resident_warps(regs)} warps an SM)")
+        log(f"    {prefix}{entry}: {what}, {spill} bytes spill stores, "
+            f"{stack} bytes stack frame")
+
+
+def check_spill(ptxas: dict) -> None:
+    """Phase 1: every kernel of MIN_BLOCKS is in the report once, spills
+    nothing and fits the blocks its launch bounds ask for; no called
+    function spills."""
+    bad = []
+    for name, blocks in MIN_BLOCKS.items():
+        found = [(e, v) for e, v in ptxas.items()
+                 if f"{len(name)}{name}E" in e and v[0] is not None]
+        if len(found) != 1:
+            bad.append(f"{name}: {len(found)} entries in the ptxas report")
+            continue
+        (regs, spill, _), = (v for _, v in found)
+        log(f"  {name}: launch bounds (128, {blocks}), {regs} registers, "
+            f"{spill} bytes spill stores")
+        if spill or resident_warps(regs) < 4 * blocks:
+            bad.append(f"{name}: {regs} registers, {spill} bytes spill "
+                       f"stores at (128, {blocks})")
+    bad += [f"{e}: {v[1]} bytes spill stores" for e, v in ptxas.items()
+            if v[0] is None and v[1]]
+    if bad:
+        raise AssertionError("kernels spill or miss their launch bounds: "
+                             + "; ".join(bad))
 
 
 def check_prove_widths(prove: dict) -> None:
     """Phase 8: PROVE_SHAPES, the widths at which phase 2 holds and times
-    the paired G2 kernels, must be the widest launches of the prove path."""
+    the point kernels of the MSMs, must be the widest launches of the prove
+    path."""
     for name, shapes in PROVE_SHAPES.items():
         widths = prove[name][2]
         log(f"  {name} on prove, launches at each width: "
@@ -361,8 +417,8 @@ def check_kernels(dev, results):
         log(f"  {name:13s} one lane (infinity and finite): max_abs_err 0  "
             f"kernel {ms1:.4f} ms")
 
-        if curve is G2:
-            for name in PROVE_SHAPES:
+        for name in PROVE_SHAPES:
+            if name.startswith(curve.name + "_"):
                 check_widths(curve, name, *ops[name][:3], results)
 
 
@@ -446,12 +502,13 @@ def take_lanes(curve, args, m: int, off: int = 0):
 
 
 def check_widths(curve, name, fn, plain, args, results):
-    """Phase 2, a paired G2 kernel beyond 2^16 lanes: bit for bit against
-    its plain version at the prove path's widths (PROVE_SHAPES), on ragged
-    launches (RAGGED, at two offsets) and on one lane (six lanes, the
-    special ones included); timed at the prove widths, beside the bound
-    there, and on one lane. Operands are lanes of `args` (2^16 lanes, lane
-    0 the only P == Q lane of the add), repeated past 2^16."""
+    """Phase 2, a point kernel of PROVE_SHAPES beyond 2^16 lanes: bit for
+    bit against its plain version at the prove path's widths (and, over
+    G1, at WAVE_LANES), on ragged launches (RAGGED, at two offsets) and on
+    one lane (six lanes, the special ones included); timed at those widths,
+    beside the bound there, and on one lane. Operands are lanes of `args`
+    (2^16 lanes, lane 0 the only P == Q lane of the add), repeated past
+    2^16."""
     n = curve.leaves(args[0])[0].shape[0]
     take = lambda m, off=0: take_lanes(curve, args, m, off)
 
@@ -460,13 +517,16 @@ def check_widths(curve, name, fn, plain, args, results):
                            curve.leaves(plain(curve, *sub)))
 
     shapes = {}
-    for m in PROVE_SHAPES[name]:
+    widths = PROVE_SHAPES[name] + ((WAVE_LANES,) if curve.name == "g1"
+                                   else ())
+    for m in widths:
         sub, n_dbl = take(m)
         err = same(sub)
         ms = cuda_ms(lambda: fn(curve, *sub), 20)
-        bnd = lane_bound(name, m, n_dbl if name == "g2_add" else 0)
+        bnd = lane_bound(name, m, n_dbl if name.endswith("_add") else 0)
         shapes[str(m)] = {"max_abs_err": err, "ms": ms, "bound_ms": bnd[0]}
-        log(f"  {name:13s} {m} lanes (prove): max_abs_err {err}  kernel "
+        what = "prove" if m in PROVE_SHAPES[name] else "one wave"
+        log(f"  {name:13s} {m} lanes ({what}): max_abs_err {err}  kernel "
             f"{ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
         if err:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -582,29 +642,25 @@ def proof_bytes(proof) -> bytes:
                     for v in (ax, ay, bx1, bx0, by1, by0, cx, cy))
 
 
-def main_path(dev, prover, launches):
-    """Phase 4: one BatchProcessTx(2, 6) batch through the port's prover."""
-    import random
+def wei(eth) -> int:
     from decimal import Decimal
-    from zkrollup_torch import kernels
-    from zkrollup_torch.groth16.prove import prove_host
+    return int(Decimal(str(eth)) * 10 ** 18)
+
+
+def demo_batch(prover):
+    """The batch of the demo rollup on `prover`'s config: the operator state
+    after two deposits (operator/state.py), then the two signed transfers
+    of cli/main.py, prepared (the witness)."""
     from zkrollup_torch.ref import eddsa
-    from zkrollup_torch.ref.bn254 import R as FR_MOD
     from zkrollup_torch.tree.merkle import create_merkle_tree
     from zkrollup_torch.witness.assembler import (Transaction, format_tx,
                                                   hash_balance_tree_leaf)
 
-    wei = lambda eth: int(Decimal(str(eth)) * 10 ** 18)
     priv_a = (3461904823869495924446136355166658661994387995314494198873459573992912434327
               % (2 ** 250))
     priv_b = (6876489714123326193969274478259787479864255376696894364275539418009183638325
               % (2 ** 250))
-
     cfg = prover.cfg
-    pk = prover.ensure_keys()
-    r1cs = prover.structure_r1cs()
-    # operator state after two deposits (operator/state.py), then the two
-    # signed transfers of the demo rollup (cli/main.py)
     tree = create_merkle_tree(cfg.tree_depth, cfg.tree_zero_value)
     pubs = [eddsa.gen_public_key(k) for k in (priv_a, priv_b)]
     for pub in pubs:
@@ -615,11 +671,23 @@ def main_path(dev, prover, launches):
         tx = Transaction(0, 1, wei(amount), wei(fee), nonce)
         tx.signature = eddsa.sign(priv_a, format_tx(tx))
         txs.append(tx)
-    prep = prover.prepare_batch(tree, txs)
+    return prover.prepare_batch(tree, txs)
+
+
+def main_path(dev, prover, launches):
+    """Phase 4: one BatchProcessTx(2, 6) batch through the port's prover."""
+    import random
+    from zkrollup_torch import kernels
+    from zkrollup_torch.groth16.prove import prove_host
+    from zkrollup_torch.ref.bn254 import R as FR_MOD
+
+    pk = prover.ensure_keys()
+    r1cs = prover.structure_r1cs()
+    prep = demo_batch(prover)
     log(f"  witness {prep.witness_s:.3f} s, "
         f"{len(prep.public_signals)} public signals")
 
-    r0, s0 = 0x1234567, 0x7654321
+    r0, s0 = PINNED_RS
     kernels.reset_launches()
     t0 = time.time()
     proof = prover.prove_prepared(prep, r=r0, s=s0)
@@ -658,7 +726,111 @@ def main_path(dev, prover, launches):
             + f", verify {st.verify_s:.3f}")
     log(f"  steady state: {len(steady) / sum(steady):.3f} proofs/s "
         f"(prove + self-verify, witness {prep.witness_s:.3f} s apart)")
-    return prep, proof_bytes(proof), (r0, s0)
+    return prep, proof_bytes(proof)
+
+
+def keep_prove_operands(prover, prep):
+    """One more proof at PINNED_RS, with cuda_curve.add and madd_nd wrapped
+    here for its length only: clones of the operands of its every g1_add
+    launch and of its g1_madd_nd launch MADD_ND_KEPT. Returns ({lanes:
+    (p, q)} of the g1_add launches, in launch order, and (p, q) of the
+    g1_madd_nd launch)."""
+    from zkrollup_torch.curve import cuda_curve
+    add, madd_nd = cuda_curve.add, cuda_curve.madd_nd
+    adds, madds = [], []
+    clone = lambda curve, *ps: tuple(curve.map(lambda a: a.clone(), p)
+                                     for p in ps)
+
+    def add_kept(curve, p, q):
+        if curve.name == "g1":
+            adds.append(clone(curve, p, q))
+        return add(curve, p, q)
+
+    def madd_nd_kept(curve, p, q):
+        if curve.name == "g1":
+            madds.append(clone(curve, p, q) if len(madds) == MADD_ND_KEPT
+                         else None)
+        return madd_nd(curve, p, q)
+
+    cuda_curve.add, cuda_curve.madd_nd = add_kept, madd_nd_kept
+    try:
+        prover.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
+    finally:
+        cuda_curve.add, cuda_curve.madd_nd = add, madd_nd
+    return adds, madds[MADD_ND_KEPT]
+
+
+def widest(adds, k: int = 2) -> list:
+    """The k widest launches of `adds`, widest first."""
+    lanes = lambda pq: pq[0][0].shape[0]
+    return sorted(adds, key=lanes, reverse=True)[:k]
+
+
+def doubling_lanes(curve, p, q):
+    """(n,) bools: the lanes of the add p + q whose doubling path's result
+    survives the selects, H = R = 0 with neither operand infinite: the
+    lanes of jac_add_lane's warp vote (csrc/curve.cuh)."""
+    from zkrollup_torch.curve import cuda_curve
+    F = curve.F
+    _, H, R = cuda_curve._add_path(F, p, q)
+    return (F.is_zero(H) & F.is_zero(R) & ~F.is_zero(p[2])
+            & ~F.is_zero(q[2]))[:, 0]
+
+
+def check_prove_operands(adds, madd, results):
+    """Phase 4, the G1 kernels on one proof's own operands: for each g1_add
+    launch its lanes and 32-lane warps on the doubling path; g1_add at its
+    two widest launches (PROVE_SHAPES) and g1_madd_nd at one launch, bit for
+    bit against the plain versions and timed beside the bound there (the
+    doubling products counted on the doubling lanes)."""
+    import torch
+    from zkrollup_torch.curve import cuda_curve
+    from zkrollup_torch.curve.g1 import G1
+
+    shares = []
+    for k, (p, q) in enumerate(adds):
+        need = doubling_lanes(G1, p, q)
+        n = need.numel()
+        warps = torch.nn.functional.pad(need, (0, -n % 32)).view(-1, 32)
+        warps = warps.any(dim=1)
+        share = {"lanes": n, "doubling_lanes": int(need.sum()),
+                 "warps": warps.numel(), "doubling_warps": int(warps.sum())}
+        shares.append(share)
+        log(f"  g1_add launch {k + 1:2d} of the proof: {n:6d} lanes, "
+            f"{share['doubling_lanes']} on the doubling path "
+            f"({share['doubling_lanes'] / n:.6f}), "
+            f"{share['doubling_warps']} of {share['warps']} warps "
+            f"({share['doubling_warps'] / share['warps']:.6f})")
+    by_lanes = {s["lanes"]: s["doubling_lanes"] for s in shares}
+    cases = [("g1_add", cuda_curve.add, cuda_curve.add_plain, pq)
+             for pq in widest(adds)]
+    cases.append(("g1_madd_nd", cuda_curve.madd_nd, cuda_curve.madd_nd_plain,
+                  madd))
+    got_widths = {name: () for name, *_ in cases}
+    rows = {name: [] for name in got_widths}
+    for name, fn, plain, (p, q) in cases:
+        m = G1.leaves(p)[0].shape[0]
+        got_widths[name] += (m,)
+        err = max_abs_err(G1.leaves(fn(G1, p, q)), G1.leaves(plain(G1, p, q)))
+        ms = cuda_ms(lambda: fn(G1, p, q), 20)
+        n_dbl = by_lanes[m] if name == "g1_add" else 0
+        bnd = lane_bound(name, m, n_dbl)
+        rows[name].append({"lanes": m, "doubling_lanes": n_dbl,
+                           "max_abs_err": err, "ms": ms, "bound_ms": bnd[0]})
+        log(f"  {name:13s} {m} lanes, the proof's operands: max_abs_err "
+            f"{err}  kernel {ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"{n_dbl} doubling lanes)")
+        if err:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version on the proof's operands ({m} "
+                                 "lanes)")
+    for name, ws in got_widths.items():
+        if ws != PROVE_SHAPES[name]:
+            raise AssertionError(f"{name}: the proof's operands are {ws} "
+                                 f"lanes wide, PROVE_SHAPES says "
+                                 f"{PROVE_SHAPES[name]}")
+        results[name]["prove_operands"] = rows[name]
+    results["g1_add"]["doubling_share"] = shares
 
 
 def msm_phase(dev, pk, witness, launches):
@@ -735,7 +907,7 @@ def msm_phase(dev, pk, witness, launches):
     return times
 
 
-def glv_phase(dev, prover, prep, want_bytes, rs, launches):
+def glv_phase(dev, prover, prep, want_bytes, launches):
     """Phase 6: the GLV prover with the Jacobian merge tree on the key of
     phase 3, the batch of phase 4 at its pinned (r, s)."""
     from zkrollup_torch import kernels
@@ -746,7 +918,7 @@ def glv_phase(dev, prover, prep, want_bytes, rs, launches):
     gp.pk = prover.ensure_keys()
     kernels.reset_launches()
     t0 = time.time()
-    proof = gp.prove_prepared(prep, r=rs[0], s=rs[1])   # self-verifies
+    proof = gp.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
     first_s = time.time() - t0
     count_path(launches, "prove_glv")
     log(f"  first GLV proof (tree='jacobian', self-verified): {first_s:.3f} s"
@@ -757,7 +929,7 @@ def glv_phase(dev, prover, prep, want_bytes, rs, launches):
                              "and the native engine's")
     log("  its bytes equal the default proof's and the native engine's")
     t0 = time.time()
-    gp.prove_prepared(prep, r=rs[0], s=rs[1])
+    gp.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
     log(f"  second GLV proof: {time.time() - t0:.3f} s; stages "
         + ", ".join(f"{k} {v:.3f}" for k, v in gp.stats.stages.items())
         + f", verify {gp.stats.verify_s:.3f}")
@@ -816,67 +988,114 @@ def curve_path(dev, launches):
         "zkrollup_torch.ref")
 
 
-def ab_run(dev, base: str) -> dict:
-    """--ab: g2_madd_nd and g2_add of this checkout against the g2.cu of
-    the csrc/ directory `base`, built with this checkout's nvcc flags into
-    a temporary directory and bound through the same wrappers (the C
-    signatures do not change). For each kernel, at 2^16 lanes with phase
-    2's special lanes, at PROVE_SHAPES and on one lane: both builds bit for
-    bit against the plain version, then timed in turns, base, this, this,
-    base (cuda_ms, 20 calls, 264 on one lane)."""
+def ab_run(dev, bases: list, keep) -> list:
+    """--ab: the point kernels of PROVE_SHAPES of this checkout against
+    those built from each csrc/ directory of `bases`. Every unit they live
+    in (kernels.UNITS) is built from each base, one nvcc each, all started
+    together with this checkout's flags into a temporary directory, and
+    bound through the same wrappers (the C signatures do not change);
+    `keep()`, called while they build, gives one proof's operands
+    (keep_prove_operands). For each kernel, at 2^16 lanes with phase 2's
+    special lanes, at PROVE_SHAPES, over G1 at WAVE_LANES and on the
+    proof's operands of g1_add's two widest launches and of one g1_madd_nd
+    launch, and on one lane: every build bit for bit against the plain
+    version, then timed in turns, base, this, this, base (cuda_ms, 20
+    calls, 264 on one lane)."""
     import tempfile
     from zkrollup_torch import kernels
+    from zkrollup_torch.curve.g1 import G1
     from zkrollup_torch.curve.g2 import G2
 
     libs = kernels.load()
-    own = libs["g2"]
-    ops = point_operands(G2, dev, 1 << 16)
-    rows = []
+    curves = {"g1": G1, "g2": G2}
+    units = sorted({kernels._SIGS[k][0] for k in PROVE_SHAPES})
     with tempfile.TemporaryDirectory() as tmp:
-        so = os.path.join(tmp, "g2.so")
-        proc = subprocess.run(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
-             os.path.join(base, "g2.cu")], capture_output=True, text=True)
-        with open(os.path.join(tmp, "g2.log"), "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {base}/g2.cu:\n"
-                               f"{proc.stderr[-4000:]}")
-        ptxas = ptxas_report({"g2": os.path.join(tmp, "g2.log")})
-        for entry, (regs, spill) in sorted(ptxas.items()):
-            log(f"    base {entry}: {regs} registers, {spill} bytes spill "
-                "stores")
-        builds = {"base": kernels.bind("g2", so), "this": own}
+        procs = {}
         try:
-            for name in PROVE_SHAPES:
-                fn, plain, args, _ = ops[name]
-                for m in (1 << 16, *PROVE_SHAPES[name], 1):
-                    sub, _ = take_lanes(G2, args, m, 5 if m == 1 else 0)
-                    want = G2.leaves(plain(G2, *sub))
+            for b, base in enumerate(bases):
+                for u in units:
+                    so = os.path.join(tmp, f"{b}_{u}.so")
+                    procs[b, u] = (so, subprocess.Popen(
+                        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
+                         os.path.join(base, kernels.UNITS[u])],
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True))
+            adds, madd = keep()
+            builds = []
+            for b, base in enumerate(bases):
+                bound_libs, logs = {}, {}
+                for u in units:
+                    so, proc = procs[b, u]
+                    out, err = proc.communicate()
+                    logs[u] = so[:-3] + ".log"
+                    with open(logs[u], "w") as f:
+                        f.write(out + err)
+                    if proc.returncode:
+                        raise RuntimeError(f"nvcc failed on {base}/"
+                                           f"{kernels.UNITS[u]}:\n"
+                                           f"{err[-4000:]}")
+                    bound_libs[u] = kernels.bind(u, so)
+                builds.append(bound_libs)
+                log(f"  base {base}:")
+                log_ptxas(ptxas_report(logs), "base ")
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+        ops = {g: point_operands(curves[g], dev, 1 << 16) for g in units}
+        proof_ops = {"g1_add": widest(adds), "g1_madd_nd": [madd]}
+        cases = []     # (kernel, lanes, operands, curve, fn, plain, sub)
+        for name in PROVE_SHAPES:
+            g = name.split("_")[0]
+            curve = curves[g]
+            fn, plain, args, _ = ops[g][name]
+            widths = ((1 << 16,) + PROVE_SHAPES[name]
+                      + ((WAVE_LANES,) if g == "g1" else ()) + (1,))
+            for m in widths:
+                sub, _ = take_lanes(curve, args, m, 5 if m == 1 else 0)
+                cases.append((name, m, "phase 2", curve, fn, plain, sub))
+            for sub in proof_ops.get(name, []):
+                cases.append((name, curve.leaves(sub[0])[0].shape[0],
+                              "the proof's", curve, fn, plain, sub))
+
+        own = dict(libs)
+        runs = [{"base": base, "rows": []} for base in bases]
+        try:
+            for name, m, what, curve, fn, plain, sub in cases:
+                unit = kernels._SIGS[name][0]
+                want = curve.leaves(plain(curve, *sub))
+                for run, bound_libs in zip(runs, builds):
+                    pair = {"base": bound_libs[unit], "this": own[unit]}
                     ms = {"base": [], "this": []}
                     for b in ("base", "this", "this", "base"):
-                        libs["g2"] = builds[b]
-                        if max_abs_err(G2.leaves(fn(G2, *sub)), want):
+                        libs[unit] = pair[b]
+                        if max_abs_err(curve.leaves(fn(curve, *sub)), want):
                             raise AssertionError(
-                                f"{name} ({b} build) disagrees with its "
-                                f"plain version at {m} lanes")
-                        ms[b].append(cuda_ms(lambda: fn(G2, *sub),
+                                f"{name} ({b} build of {run['base']}) "
+                                f"disagrees with its plain version at {m} "
+                                f"lanes ({what} operands)")
+                        ms[b].append(cuda_ms(lambda: fn(curve, *sub),
                                              264 if m == 1 else 20))
-                    rows.append({"kernel": name, "lanes": m, **ms})
-                    log(f"  {name:11s} {m:6d} lanes: base "
+                    run["rows"].append({"kernel": name, "lanes": m,
+                                        "operands": what, **ms})
+                    log(f"  {name:11s} {m:6d} lanes ({what} operands), "
+                        f"base {run['base']}: "
                         + " ".join(f"{t:.4f}" for t in ms["base"])
                         + " ms, this "
                         + " ".join(f"{t:.4f}" for t in ms["this"]) + " ms")
         finally:
-            libs["g2"] = own
-    return {"base": base, "ptxas": ptxas, "rows": rows}
+            libs.update(own)
+    return runs
 
 
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", metavar="CSRC", action="append", default=[],
-                    help="time the paired G2 kernels against CSRC/g2.cu")
+                    help="time the point kernels of PROVE_SHAPES against "
+                         "those built from CSRC")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "zkrollup_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -904,19 +1123,24 @@ def main() -> int:
         f"{len(kernels.UNITS)} units built by parallel nvcc processes "
         f"({os.path.dirname(info['paths']['fields'])})")
     ptxas = ptxas_report(info["logs"])
-    for entry, (regs, spill) in sorted(ptxas.items()):
-        log(f"    {entry}: {regs} registers, {spill} bytes spill stores")
-    check_pair_spill(ptxas)
+    log_ptxas(ptxas)
+    check_spill(ptxas)
     t0 = time.time()
     if not engine.available():
         raise RuntimeError("the native engine did not build (g++, native/src)")
     log(f"  native engine: {time.time() - t0:.1f} s ({engine._LIB_PATH})")
 
     if opts.ab:
-        out = []
-        for base in opts.ab:
-            log(f"A/B against {base}")
-            out.append(ab_run(dev, base))
+        from zkrollup_torch.config import RollupConfig
+        from zkrollup_torch.operator.prover import TxProver
+
+        def keep():
+            prover = TxProver(RollupConfig(), key_path=None,
+                              setup_seed=SETUP_SEED, device=dev, c=12)
+            return keep_prove_operands(prover, demo_batch(prover))
+
+        log(f"A/B against {', '.join(opts.ab)}")
+        out = ab_run(dev, opts.ab, keep)
         log(smi)
         print(json.dumps({"ab": out}))
         return 0
@@ -931,7 +1155,8 @@ def main() -> int:
     prover = setup_phase(dev, launches)
 
     log("phase 4: main path, BatchProcessTx(2, 6)")
-    prep, want_bytes, rs = main_path(dev, prover, launches)
+    prep, want_bytes = main_path(dev, prover, launches)
+    check_prove_operands(*keep_prove_operands(prover, prep), results)
 
     log("phase 5: the MSMs over the key's tables, four bucket strategies "
         "and GLV")
@@ -939,7 +1164,7 @@ def main() -> int:
 
     log("phase 6: the GLV prover with the Jacobian merge tree, "
         "BatchProcessTx(2, 6)")
-    glv_phase(dev, prover, prep, want_bytes, rs, launches)
+    glv_phase(dev, prover, prep, want_bytes, launches)
 
     log("phase 7: tools")
     tools_phase(dev, results, launches)

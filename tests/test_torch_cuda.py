@@ -172,6 +172,44 @@ def test_point_kernels_match_plain(cuda_device, name):
             assert all(torch.equal(a, b) for a, b in zip(got, want)), m
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_p_plus_p", "inf_plus_inf",
+                                  "ragged_33", "ragged_1025"])
+def test_g1_add_vote_matches_plain(cuda_device, case):
+    """g1_add runs the doubling path only in warps with a P == Q lane of
+    finite points: a warp of 31 distinct pairs and one P + P lane, a warp
+    of infinity + infinity only (H = R = 0 on every lane, no doubling), and
+    launches of 33 and 1,025 lanes whose P + P lane is in the ragged last
+    warp; bit for bit against the plain version."""
+    curve, p, q = _point_operands("g1", cuda_device)
+    distinct = list(range(5, N))            # lanes 5.. are distinct pairs
+    lanes = {"one_p_plus_p": distinct[:17] + [0] + distinct[17:31],
+             "inf_plus_inf": [4] * 32}.get(case)
+    if lanes is None:
+        m = int(case.split("_")[1])
+        lanes = [distinct[k % len(distinct)] for k in range(m - 1)] + [0]
+    idx = torch.tensor(lanes, device=cuda_device)
+    sub = [curve.map(lambda a: a.index_select(0, idx), t) for t in (p, q)]
+    got, want = (curve.leaves(f(curve, *sub))
+                 for f in (cuda_curve.add, cuda_curve.add_plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [67_584, 74_492])
+def test_g1_madd_nd_wide_matches_plain(cuda_device, m):
+    """g1_madd_nd at one wave of 16 warps an SM (67,584 lanes) and at the
+    (2,6) proof's lanes a launch (74,492): lanes 1.. of the point operands
+    (every case but P + P, the kernel's contract), repeated; bit for bit
+    against the plain version."""
+    curve, p, q = _point_operands("g1", cuda_device)
+    idx = torch.arange(m, device=cuda_device) % (N - 1) + 1
+    sub = [curve.map(lambda a: a.index_select(0, idx), t) for t in (p, q)]
+    got, want = (curve.leaves(f(curve, *sub))
+                 for f in (cuda_curve.madd_nd, cuda_curve.madd_nd_plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def _z01_operand(curve, q):
     """Affine-or-infinity points against q (Z in {0, 1}): q rolled by one
     lane, then lane 0 = q (P + P), lane 1 = -q (P + (-P)), lanes 2 and 4

@@ -4,7 +4,9 @@ double and the mixed add (no-double and safe) against the generic
 weierstrass G1 formulas and, in the slow tier, against the Pallas kernels
 in interpret mode; every result also against zkrollup.ref affine
 arithmetic. The plain versions of the double and the safe mixed add are
-held against zkrollup.ref for G1 and G2, limb for limb.
+held against zkrollup.ref for G1 and G2, limb for limb. The rule g1_add's
+warp vote relies on (the doubling path is needed only on P == Q lanes of
+finite points) is held against add_plain and the reference.
 
 Exactness: Jacobian limbs are equal wherever the result is a finite point,
 and Z is equal everywhere. On P + (-P) the Pallas kernels (and the port)
@@ -12,6 +14,8 @@ zero only Z, where the generic JAX formula zeroes X and Y too. On P + P the
 safe mixed add follows the Pallas kernel (the affine double of q, Z = 2 y2),
 where the generic JAX mixed_add doubles p: the same point, other limbs.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -116,6 +120,73 @@ def test_add_matches_generic_and_ref(nonunit_z):
     p, q, pa, qa = _operands(3, nonunit_z)
     got = g1.G1.add(p, q)
     _assert_matches(got, g1_jax.G1._add_generic(_jax(p), _jax(q)))
+    assert g1.to_affine_host(got) == _sums(pa, qa)
+
+
+def _vote_operands(seed):
+    """(p, q, affine p, affine q) over N lanes: the special lanes of
+    _operands (0 P + P, 1 P + (-P), 2 inf + Q, 3 P + inf, 4 inf + inf, p
+    with Z != 1), then Jacobian infinities with X, Y != 0 (the Z-only
+    zeroing of a P + (-P) result, J below): 5 J + Q, 6 P + J, 7 J + J;
+    8 P + P on the same limbs, 9 P + P with Z != 1 against Z = 1; the rest
+    distinct pairs."""
+    p, q, pa, qa = _operands(seed, nonunit_z=True)
+    jinf = g1.G1.add(p, g1.G1.neg(p))
+    assert jinf[2][5:8].eq(0).all() and jinf[0][5:8].ne(0).any(dim=1).all()
+    same_z1 = g1.pack_jacobian_host(pa)
+    p0, q0 = (tuple(c.clone() for c in t) for t in (p, q))
+    lanes = {5: (jinf, q0), 6: (p0, jinf), 7: (jinf, jinf), 8: (p0, p0),
+             9: (p0, same_z1)}
+    for k, (a, b) in lanes.items():
+        for d, s in zip(p + q, a + b):
+            d[k] = s[k]
+    pa[5], qa[6], pa[7], qa[7], qa[8], qa[9] = (None, None, None, None,
+                                                pa[8], pa[9])
+    return p, q, pa, qa
+
+
+def _add_voted(curve, p, q, warp: int):
+    """The unified add as csrc/curve.cuh:jac_add_lane runs it over FqCall
+    (g1_add): the doubling path computed only in groups of `warp` lanes
+    where some lane has H = R = 0 with neither operand infinite, and there
+    selected where H = R = 0, before the infinity selects."""
+    F = curve.F
+    out, H, R = cuda_curve._add_path(F, p, q)
+    h_zero, r_zero = F.is_zero(H), F.is_zero(R)
+    p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
+    need = (h_zero & r_zero & ~p_inf & ~q_inf)[:, 0]
+    n = need.shape[0]
+    voted = torch.nn.functional.pad(need, (0, -n % warp)).view(-1, warp)
+    voted = voted.any(dim=1).repeat_interleave(warp)[:n, None]
+    out = curve.select(h_zero & r_zero & voted,
+                       cuda_curve.double_plain(curve, p), out)
+    return cuda_curve._inf_selects(curve, out, h_zero & ~r_zero & ~p_inf
+                                   & ~q_inf, p, q)
+
+
+@functools.lru_cache(maxsize=None)
+def _vote_case():
+    """_vote_operands(23) and the reference's plain JAX add of them, made
+    once for the cases of test_add_doubles_only_where_needed."""
+    p, q, pa, qa = _vote_operands(23)
+    return p, q, pa, qa, g1_jax.G1._add_generic(_jax(p), _jax(q))
+
+
+@pytest.mark.parametrize("warp", [1, 5, 32])
+def test_add_doubles_only_where_needed(warp):
+    """g1_add's warp vote: with the doubling path selected only in groups
+    of `warp` lanes that hold a P == Q lane of finite points (warp 1: only
+    on those lanes; 5: a ragged last group; 32: every lane in one warp),
+    the add equals add_plain limb for limb on every lane, infinities with
+    X, Y != 0 and infinity + infinity (H = R = 0 too) included; both equal
+    the reference's plain JAX add (Z everywhere, X and Y on finite lanes)
+    and zkrollup.ref."""
+    p, q, pa, qa, want = _vote_case()
+    got = _add_voted(g1.G1, p, q, warp)
+    plain = cuda_curve.add_plain(g1.G1, p, q)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    _assert_matches(got, want)
+    _assert_matches(plain, want)
     assert g1.to_affine_host(got) == _sums(pa, qa)
 
 

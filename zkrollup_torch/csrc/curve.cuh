@@ -1,6 +1,6 @@
 // Jacobian point formulas over Fq (G1) or Fq2 (G2) for the zkrollup_torch
 // CUDA kernels: one lane = one point (double) or one point pair (adds),
-// branch-free.
+// branch-free but for the warp vote of the add over FqCall (jac_add_lane).
 //
 // Replace the point kernels of zkrollup/curve/pallas_curve.py (_add_kernel,
 // _add_nd_kernel, _add_z01_kernel, _make_madd_kernel(False),
@@ -26,8 +26,9 @@ struct PointArgs {
 };
 
 // Store one lane's result X3 Y3 Z3, unless the lane is not live (a thread
-// past the ragged edge of a paired kernel, which computes on a clamped
-// lane so that every thread reaches the shuffles, and stores nothing).
+// past the ragged edge of a paired kernel or of g1_add, which computes on
+// a clamped lane so that every thread reaches the shuffles or the warp
+// vote, and stores nothing).
 template <class E>
 ZKT_HD void store3(const PointArgs& args, int64_t i, bool live, const E& X3,
                    const E& Y3, const E& Z3) {
@@ -124,9 +125,36 @@ ZKT_HD void inf_selects(E& X3, E& Y3, E& Z3, bool to_inf, bool p_inf,
   Z3 = E::select(q_inf, Z1, Z3);
 }
 
+// Whether jac_add_lane over E runs the doubling path only in warps where
+// some lane needs it (true for FqCall, fq_call.cuh: g1_add). Over every
+// other type each lane computes it, branch-free.
+template <class E>
+struct VoteDoubling {
+  static constexpr bool value = false;
+};
+
+// True on every thread of a warp where `need` holds on any of them. Every
+// thread of the warp must reach the vote: a kernel that calls it clamps
+// its lane index past the ragged edge and stores nothing there. A host
+// build is one lane a warp.
+ZKT_HD bool any_in_warp(bool need) {
+#ifdef __CUDA_ARCH__
+  return __any_sync(0xffffffffu, need);
+#else
+  return need;
+#endif
+}
+
 // Unified Jacobian add with the doubling path and the infinity and P + (-P)
-// masks, branch-free (pallas_curve.py:_add_kernel). Infinity is Z = 0; on
-// P + (-P) only Z is zeroed, as in the Pallas kernel.
+// masks (pallas_curve.py:_add_kernel). Infinity is Z = 0; on P + (-P) only
+// Z is zeroed, as in the Pallas kernel.
+//
+// The doubling's result survives the selects only where H = R = 0 with
+// neither operand infinite: where either is, the infinity selects
+// overwrite all three coordinates (infinity + infinity also has
+// H = R = 0). Over a VoteDoubling type a warp computes the doubling and
+// its selects only if one of its lanes is such a lane; every lane's
+// result is the same as when every lane computes it.
 template <class E>
 ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i,
                          bool live = true) {
@@ -142,7 +170,10 @@ ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i,
   const bool h_zero = H.is_zero(), r_zero = R.is_zero();
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool same = h_zero && r_zero;
-  {
+  bool doubling = true;
+  if constexpr (VoteDoubling<E>::value)
+    doubling = any_in_warp(same && !p_inf && !q_inf);
+  if (doubling) {
     E dX, dY, dZ;
     jac_double(dX, dY, dZ, X1, Y1, Z1);
     X3 = E::select(same, dX, X3);

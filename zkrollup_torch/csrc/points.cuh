@@ -1,10 +1,13 @@
-// The zkrollup_torch point kernels: six templates over the coordinate field
-// E (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu), one launch function each,
-// and two of them again over Fq2Pair, two threads a G2 lane (g2.cu's
-// g2_add and g2_madd_nd).
+// The zkrollup_torch point kernels: the lanes of curve.cuh over the
+// coordinate field E, one launch function each. Four are templates over E
+// (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu); the add and the mixed add
+// without the doubling path are built over FqCall (fq_call.cuh, one thread
+// a G1 lane, g1.cu's g1_add and g1_madd_nd) and over Fq2Pair (two threads
+// a G2 lane, g2.cu's g2_add and g2_madd_nd).
 //
-//   jac_add<E>      replaces pallas_curve.py:g1_add (_add_kernel); over
-//                   Fq2Pair (jac_add_pair) pallas_curve_g2.py:g2_add
+//   jac_add         replaces pallas_curve.py:g1_add (_add_kernel) over
+//                   FqCall (g1_add_kernel); over Fq2Pair (jac_add_pair)
+//                   pallas_curve_g2.py:g2_add
 //   jac_add_nd<E>   replaces pallas_curve.py:g1_add_nd (_add_nd_kernel) and
 //                   pallas_curve_g2.py:g2_add_nd
 //   jac_add_z01<E>  replaces pallas_curve.py:g1_add_z01 (_add_z01_kernel);
@@ -12,8 +15,9 @@
 //                   weierstrass.py:_add_z01_generic, which has no Pallas
 //                   kernel (it differs from that glue in limbs on P + (-P)
 //                   lanes only, where the kernel zeroes Z alone)
-//   jac_madd_nd<E>  replaces pallas_curve.py:g1_madd_nd; over Fq2Pair
-//                   (jac_madd_nd_pair) pallas_curve_g2.py:g2_madd_nd
+//   jac_madd_nd     replaces pallas_curve.py:g1_madd_nd over FqCall
+//                   (g1_madd_nd_kernel); over Fq2Pair (jac_madd_nd_pair)
+//                   pallas_curve_g2.py:g2_madd_nd
 //   jac_madd<E>     replaces pallas_curve.py:g1_madd
 //                   (_make_madd_kernel(False)) and g2_madd
 //   jac_double<E>   replaces pallas_curve.py:g1_double (_double_kernel) and
@@ -38,7 +42,8 @@
 //   jac_add_z01 G1 6 + 6,       192 +  96 B;  G2 16 + 13,     384 + 192 B
 // The storage moves twice those bytes: every coordinate is a 64-byte row
 // of 16 int32 limbs, half of each word zero. The kernels are branch-free,
-// so every lane also computes the doubling path. At 64 multiplies per SM
+// so every lane also computes the doubling path, but for g1_add, which
+// computes it only in warps that need it. At 64 multiplies per SM
 // per clock every point kernel is multiply-bound on the packed bytes; the
 // G1 double and the G1 add_z01 come closest to the balance point.
 //
@@ -50,10 +55,13 @@
 // accept the spill: it stays in L1 and no intermediate goes to device
 // memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> and
 // jac_add_z01<Fq2> 255 registers and 60 bytes of spill stores each,
-// jac_madd<Fq2> 255 and 20 bytes, jac_double<Fq2> 137; over Fq jac_add
-// 131, jac_add_nd 142, jac_add_z01 127, jac_madd 128, jac_madd_nd 123,
-// jac_double 64, none of them spilling. jac_add<Fq2> and jac_madd_nd<Fq2>,
-// which g2.cu no longer builds, took 255 and spilled 172 and 16 bytes.)
+// jac_madd<Fq2> 255 and 20 bytes, jac_double<Fq2> 137; over Fq
+// jac_add_nd 142, jac_add_z01 127, jac_madd 128, jac_double 64, none of
+// them spilling. jac_add<Fq2> and jac_madd_nd<Fq2>, which g2.cu no longer
+// builds, took 255 and spilled 172 and 16 bytes; jac_add<Fq> and
+// jac_madd_nd<Fq>, which g1.cu no longer builds, 131 and 123.) Over
+// FqCall, its product called, g1_add_kernel takes 149 registers and
+// g1_madd_nd_kernel 124, no spill, at the launch bounds of g1.cu.
 // The Fq2Pair kernels (fq2_pair.cuh) halve both: 8 registers a value and
 // half the chain a thread, each Fq2 product one Montgomery reduction of
 // two unreduced products; their launch bounds and ptxas figures are in
@@ -68,6 +76,7 @@
 #include "curve.cuh"
 #include "field.cuh"
 #include "fq2_pair.cuh"
+#include "fq_call.cuh"
 
 namespace zkt {
 
@@ -78,13 +87,22 @@ namespace zkt {
     if (i < n) LANE<E>(args, i);                                          \
   }
 
-ZKT_POINT_KERNEL(jac_add_kernel, jac_add_lane)
 ZKT_POINT_KERNEL(jac_add_nd_kernel, jac_add_nd_lane)
 ZKT_POINT_KERNEL(jac_add_z01_kernel, jac_add_z01_lane)
-ZKT_POINT_KERNEL(jac_madd_nd_kernel, jac_madd_nd_lane)
 ZKT_POINT_KERNEL(jac_madd_kernel, jac_madd_lane)
 ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 #undef ZKT_POINT_KERNEL
+
+// A kernel of one thread a lane over E with at least MIN_BLOCKS blocks of
+// 128 threads resident an SM (g1.cu's g1_add and g1_madd_nd over FqCall).
+// Past the ragged edge a thread computes lane n - 1 again and stores
+// nothing, so that every thread of a warp reaches a warp vote.
+#define ZKT_LANE_KERNEL(NAME, LANE, E, MIN_BLOCKS)                         \
+  __global__ void __launch_bounds__(128, MIN_BLOCKS)                      \
+      NAME(PointArgs args, int64_t n) {                                   \
+    const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;     \
+    LANE<E>(args, i < n ? i : n - 1, i < n);                              \
+  }
 
 // A kernel of two threads a lane over Fq2Pair, lane i on threads 2i and
 // 2i+1. Past the ragged edge a thread computes lane n - 1 again, so that
@@ -149,16 +167,3 @@ inline int launch_pair(PointKernel kernel, int n_in, void* const* in,
                                   int64_t n, void* stream) {                \
     return LAUNCH(KERNEL, N_IN, in, out, n, stream);                        \
   }
-
-// The six entry points of one curve, one thread a lane, over E.
-#define ZKT_CURVE_API(G, E)                                                 \
-  ZKT_POINT_API(G, add, zkt::launch_point<E>, zkt::jac_add_kernel<E>, 2)   \
-  ZKT_POINT_API(G, add_nd, zkt::launch_point<E>,                           \
-                zkt::jac_add_nd_kernel<E>, 2)                               \
-  ZKT_POINT_API(G, add_z01, zkt::launch_point<E>,                          \
-                zkt::jac_add_z01_kernel<E>, 2)                              \
-  ZKT_POINT_API(G, madd_nd, zkt::launch_point<E>,                          \
-                zkt::jac_madd_nd_kernel<E>, 2)                              \
-  ZKT_POINT_API(G, madd, zkt::launch_point<E>, zkt::jac_madd_kernel<E>, 2) \
-  ZKT_POINT_API(G, double, zkt::launch_point<E>,                           \
-                zkt::jac_double_kernel<E>, 1)

@@ -31,8 +31,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # source unit -> its .cu file; every unit includes some of the headers
 UNITS = {"fields": "fields.cu", "g1": "g1.cu", "g2": "g2.cu",
          "alu": "alu.cu"}
-_HEADERS = ("capi.cuh", "field.cuh", "fq2_pair.cuh", "curve.cuh",
-            "points.cuh")
+_HEADERS = ("capi.cuh", "field.cuh", "fq2_pair.cuh", "fq_call.cuh",
+            "curve.cuh", "points.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "..", "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
