@@ -15,6 +15,12 @@ Phases; any failure raises and the script exits non-zero:
   2. every kernel instantiation against its plain PyTorch version on the
      card, bit for bit, at the main path's widths, with both times and the
      kernel's bound (the least time the card could take for the work);
+     the NTT pass on whole 2^17 transforms (forward, inverse, with pre and
+     post tables, with the quotient's plain-form post and pointwise
+     prologue, a batch of three) and as 17 one-stage passes, each pass and
+     the quotient timed; the fold on 2^17 rows with its edge rows; the
+     gathered mont_mul at 164,215 lanes and mont_mul at the witness's
+     117,114;
      the double also on one lane, the width of the MSM's Horner; the four
      point kernels of PROVE_SHAPES (g1_madd_nd, g1_add, g2_madd_nd,
      g2_add) also at the prove path's lanes per launch (timed there beside
@@ -28,9 +34,15 @@ Phases; any failure raises and the script exits non-zero:
      the native engine; the two must be equal byte for byte
   4. the main path: two deposits, the two signed transfers of the demo
      rollup, one proof with the card-made key at pinned (r, s) that must
-     self-verify and equal the native engine's proof byte for byte, the
-     expected final balances, then three proofs at random (r, s), each
-     self-verified; then one more proof at the pinned (r, s) whose G1 add
+     self-verify and equal the native engine's proof byte for byte (the
+     calls of limbs.normalize on CUDA tensors counted), the expected final
+     balances, the same batch through TxProver.prove_batch (the same
+     bytes), then three proofs at random (r, s), each self-verified (the
+     steady proofs/s, with no stage syncs), two prove(timings=) calls for
+     the stage seconds, one steady proof under torch.profiler (device busy
+     share, device time by kernel name, peak memory) and evals_quotient's
+     parts on the host clock; then one more proof at the pinned (r, s)
+     whose G1 add
      and madd_nd operands are kept (cuda_curve's wrappers are wrapped in
      this script for that proof only): for each g1_add launch the share of
      lanes and of 32-lane warps on the doubling path, then g1_add at its
@@ -53,7 +65,8 @@ Phases; any failure raises and the script exits non-zero:
   8. the launch count and the lanes of every kernel on each path (setup,
      the first proof, the MSMs, the strategies, the GLV proof, the tools,
      the G1 add_nd), each counted from 0 just before its path; each kernel
-     of a path must launch on it
+     of a path must launch on it; on prove ntt_pass and mont_mul[fr] at most
+     six times, fold[fr] eight times, limbs.normalize on CUDA tensors never
 The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
@@ -61,8 +74,12 @@ nothing is printed as a result when a phase fails.
 With --ab, phases 0 and 1 only, then the four point kernels of
 PROVE_SHAPES of this checkout against those built from each CSRC directory
 (another commit's zkrollup_torch/csrc unpacked with `git archive`, or an
-edited copy of this one's), on phase 2's operands and on one proof's own:
-see ab_run. The last line is then one JSON object with the times.
+edited copy of this one's), on phase 2's operands and on one proof's own,
+and the field route (a 2^17 transform, the quotient, the fold, mont_mul at
+its prove widths) against each CSRC's fields.cu, through the stage-by-stage
+route where it has the earlier C interface (one butterfly launch a stage, as
+at commit cea5215): see ab_run and ab_fields. The last line is then
+one JSON object with the times.
 """
 
 import sys
@@ -72,6 +89,8 @@ import sys
 sys.modules["jax"] = None
 sys.modules["zkrollup"] = None
 
+import collections  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -89,7 +108,9 @@ _PC2 = "zkrollup/curve/pallas_curve_g2.py:"
 KERNELS = {
     "mont_mul[fr]": (_CSRC + "fields.cu", "zkrollup/fields/pallas_mont.py:211"),
     "mont_mul[fq]": (_CSRC + "fields.cu", "zkrollup/fields/pallas_mont.py:211"),
-    "butterfly": (_CSRC + "fields.cu", "zkrollup/fields/pallas_mont.py:175"),
+    "ntt_pass": (_CSRC + "fields.cu", "zkrollup/fields/pallas_mont.py:175"),
+    # no Pallas kernel: the XLA glue of the spmv's carry pass and fold
+    "fold[fr]": (_CSRC + "fields.cu", "zkrollup/groth16/prove.py:54"),
     "g1_madd_nd": (_CSRC + "g1.cu", _PC + "504"),
     "g1_add": (_CSRC + "g1.cu", _PC + "480"),
     "g2_madd_nd": (_CSRC + "g2.cu", _PC2 + "304"),
@@ -111,14 +132,14 @@ KERNELS = {
 # the kernels each path must launch
 PATHS = {
     "setup": ("mont_mul[fq]", "g1_madd", "g2_madd"),
-    "prove": ("mont_mul[fr]", "mont_mul[fq]", "butterfly", "g1_madd_nd",
-              "g1_add", "g2_madd_nd", "g2_add"),
+    "prove": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
+              "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
     "msm": ("g1_madd", "g2_madd", "g1_double", "g2_double", "g1_add",
             "g2_add"),
     "msm_trees": ("mont_mul[fq]", "g1_add", "g2_add", "g1_add_z01",
                   "g2_add_z01", "g1_madd", "g1_double", "g2_double"),
-    "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "butterfly", "g1_add_z01",
-                  "g1_add", "g2_add_z01", "g2_add"),
+    "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
+                  "g1_add_z01", "g1_add", "g2_add_z01", "g2_add"),
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
               "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi"),
     "curve": ("g1_add_nd",),
@@ -160,6 +181,20 @@ ALU_OPS = {
     "mul16": (1, INT_MULS_PER_S), "umulhi": (1, INT_MULS_PER_S),
 }
 ALU_LOG_N, ALU_REPS = 19, 1024      # the rate run: (16, 2^19) lanes
+# the (2,6) proof's domain, its witness rows, and the gathered spmv
+# products: the mean mont_mul[fr] width on prove of the stage-by-stage
+# route (31 launches), and the widest
+# product (the A matrix's 735,774 terms)
+DOMAIN_LOG = 17
+WITNESS_ROWS = 117_114
+GATHER_LANES = 164_215
+GATHER_WIDEST = 735_774
+# launches on the prove path (phase 8): at most six NTT passes (the
+# quotient's three transforms, two passes each) and six mont_mul[fr] (the
+# witness's to_mont and the three gathered spmv products); exactly eight
+# folds (the three spmv rows, the four G1 tables' merged scalars, G2's)
+PROVE_LIMITS = {"ntt_pass": (1, 6), "mont_mul[fr]": (1, 6),
+                "fold[fr]": (8, 8)}
 # lanes per launch of the MSMs' point kernels on the prove path, the widest
 # of each (c = 12: 22 windows, chunks of 128 points). G1, the four a, b1,
 # c and h tables as one MSM of 3,386 chunks and 4 x 4,096 buckets: the
@@ -279,6 +314,27 @@ def check_prove_widths(prove: dict) -> None:
                                  f"are {widest}, PROVE_SHAPES says {shapes}")
 
 
+def check_prove_limits(launches) -> None:
+    """Phase 8: the field kernels' launches on the prove path within
+    PROVE_LIMITS, and limbs.normalize never reached on a CUDA tensor
+    during that proof."""
+    prove = launches["prove"]
+    for name, (lo, hi) in PROVE_LIMITS.items():
+        count = prove[name][0]
+        log(f"  {name} on prove: {count} launches (allowed {lo}-{hi}), "
+            "lanes at each width: " + ", ".join(
+                f"{w} x {c}" for w, c in sorted(prove[name][2].items(),
+                                                reverse=True)))
+        if not lo <= count <= hi:
+            raise AssertionError(f"{name}: {count} launches on prove, "
+                                 f"allowed {lo}-{hi}")
+    norm = launches["prove_normalize_cuda"]
+    log(f"  limbs.normalize on CUDA tensors during the first proof: {norm}")
+    if norm:
+        raise AssertionError(f"limbs.normalize ran {norm} times on CUDA "
+                             "tensors during the first proof")
+
+
 def count_path(launches, path):
     """launches[path][kernel] = (launches, lanes, {lanes a launch: launches})
     since the last reset."""
@@ -368,27 +424,7 @@ def check_kernels(dev, results):
                cuda_ms(lambda: cuda_mont.mont_mul_plain(F, a2, b2), 3),
                lane_bound("mont_mul", m))
 
-    # butterfly: the 17 in-place stages of an NTT over the 2^17 domain
-    # (2^16 lanes each); the times are per stage, the bound is the mean
-    # stage's: 2^17 rows read and written, 2^s twiddle rows read
-    n = 1 << 17
-    x0 = rand_fe(n)
-    tws = [rand_fe(1 << s) for s in range(17)]
-
-    def all_stages(stage, x):
-        for s, tw in enumerate(tws):
-            stage(FR, x, tw, 1 << s)
-        return x
-
-    stage_bytes = sum(2 * n * VALUE_BYTES + (1 << s) * VALUE_BYTES
-                      for s in range(17)) / 17
-    record("butterfly", [all_stages(cuda_mont.ntt_stage_, x0.clone())],
-           [all_stages(cuda_mont.ntt_stage_plain_, x0.clone())],
-           cuda_ms(lambda: all_stages(cuda_mont.ntt_stage_, x0.clone()),
-                   20) / 17,
-           cuda_ms(lambda: all_stages(cuda_mont.ntt_stage_plain_,
-                                      x0.clone()), 2) / 17,
-           bound(n // 2, stage_bytes))
+    check_fields(dev, rand_fe, record, results)
 
     # curve kernels over 2^16 lanes of real points
     n = 1 << 16
@@ -420,6 +456,206 @@ def check_kernels(dev, results):
         for name in PROVE_SHAPES:
             if name.startswith(curve.name + "_"):
                 check_widths(curve, name, *ops[name][:3], results)
+
+
+def transform_bound(batch: int, log_n: int, products: int = 0,
+                    tables: int = 1):
+    """The bound of `batch` radix-2 transforms of 2^log_n rows: log_n x
+    2^(log_n - 1) products each (and `products` more, the tables' and the
+    prologue's), against the rows read and written once and `tables`
+    tables of 2^log_n rows read once (the twiddles; pre or post)."""
+    n = 1 << log_n
+    return bound(batch * log_n * n // 2 + products,
+                 (2 * batch + tables) * n * VALUE_BYTES)
+
+
+def run_passes(fn, x, tw, **kw):
+    """A transform of x through `fn` (cuda_mont.ntt_pass or its plain
+    version) pass by pass, as ntt.transform runs it."""
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.ntt import ntt
+    plan = ntt.passes(x.shape[-2].bit_length() - 1)
+    post = kw.pop("post", None)
+    y = None
+    for p, (s0, k) in enumerate(plan):
+        last = post if p == len(plan) - 1 else None
+        if p == 0:
+            y = fn(FR, x, tw, s0, k, bitrev=True, post=last, **kw)
+        else:
+            fn(FR, y, tw, s0, k, out=y, post=last)
+    return y
+
+
+def check_fields(dev, rand_fe, record, results):
+    """Phase 2, the NTT pass, the fold and the gathered mont_mul at the
+    prove path's shapes, bit for bit against their plain versions, each
+    with 0, 1 and r - 1 in its first rows. ntt_pass: one 2^17 transform,
+    forward and inverse (n^-1 broadcast); with Montgomery pre and post
+    tables; with the quotient's plain-form post; a batch of three; the
+    pointwise prologue of the quotient's coset iNTT; the 17 stages as 17
+    passes of one stage (in place, the old butterfly's function). Timed:
+    the forward transform (its row in the kernel line), each of its two
+    launches, the batch of three, the coset iNTT with its prologue, the
+    one-stage pass and the whole quotient on 2^17 rows. fold[fr]: 2^17
+    rows of lazy sums with rows V = 0, V = 2^288 - 1 and V = 5 r. The
+    gathered mont_mul[fr]: 164,215 and 735,774 lanes over a 117,114-row
+    table, and the plain launch at the witness's 117,114 lanes."""
+    import numpy as np
+    import torch
+    from zkrollup_torch.fields import cuda_mont, limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.groth16 import prove as P
+    from zkrollup_torch.ntt import ntt
+
+    log_n = DOMAIN_LOG
+    n = 1 << log_n
+    edges = L.to_device(L.ints_to_limbs([0, 1, FR.p - 1]), dev)
+
+    def fe(*shape):
+        x = rand_fe(int(np.prod(shape))).view(*shape, 16)
+        if shape[-1] >= 3:
+            x[..., :3, :] = edges
+        return x
+
+    tab = lambda kind: ntt._TABLES.get(kind, log_n, dev)
+    tw, twi = tab("twiddles"), tab("twiddles_inv")
+    ninv = FR.const_mont(pow(n, FR.p - 2, FR.p), dev)
+    x, x3, b, c = fe(n), fe(3, n), fe(n), fe(n)
+    z = fe(1)[0]
+    cases = {
+        "forward": (x, tw, {}),
+        "inverse": (x, twi, {"post": ninv}),
+        "pre and post": (x, tw, {"pre": tab("coset"),
+                                 "post": tab("ninv_coset")}),
+        "plain-form post": (x, twi, {"post": tab("ninv_coset_inv_plain")}),
+        "batch of 3": (x3, twi, {"post": tab("ninv_coset")}),
+        "pointwise": (x, twi, {"pointwise": (b, c, z),
+                               "post": tab("ninv_coset_inv_plain")}),
+    }
+    got, want = [], []
+    for name, (xx, tt, kw) in cases.items():
+        got.append(run_passes(cuda_mont.ntt_pass, xx, tt, **dict(kw)))
+        want.append(run_passes(cuda_mont.ntt_pass_plain, xx, tt, **dict(kw)))
+        log(f"  ntt_pass, 2^{log_n} transform, {name}: max_abs_err "
+            f"{max_abs_err(got[-1:], want[-1:])}")
+    # the 17 stages as 17 one-stage passes in place (random tables)
+    tws = [rand_fe(1 << s) for s in range(log_n)]
+
+    def all_stages(stage, y):
+        for s, t in enumerate(tws):
+            stage(FR, y, t, 1 << s)
+        return y
+
+    got.append(all_stages(cuda_mont.ntt_stage_, x.clone()))
+    want.append(all_stages(cuda_mont.ntt_stage_plain_, x.clone()))
+    record("ntt_pass", got, want,
+           cuda_ms(lambda: ntt.transform(x), 50),
+           cuda_ms(lambda: run_passes(cuda_mont.ntt_pass_plain, x, tw), 2),
+           transform_bound(1, log_n))
+    y = ntt.transform(x)
+    (s0a, ka), (s0b, kb) = ntt.passes(log_n)
+    evals = [fe(n) for _ in range(3)]
+    zinv = fe(1)[0]
+    extra = {
+        "pass_ms": [cuda_ms(lambda: cuda_mont.ntt_pass(
+                        FR, x, tw, s0a, ka, bitrev=True), 50),
+                    cuda_ms(lambda: cuda_mont.ntt_pass(
+                        FR, y, tw, s0b, kb, out=y), 50)],
+        "pass_bound_ms": [transform_bound(1, log_n)[0] * ka / log_n,
+                          transform_bound(1, log_n)[0] * kb / log_n],
+        "batch3_ms": cuda_ms(lambda: ntt.transform(x3, True,
+                                                   post=tab("ninv_coset")),
+                             20),
+        "batch3_bound_ms": transform_bound(3, log_n, 3 * n, 2)[0],
+        "coset_intt_pointwise_ms": cuda_ms(lambda: ntt.transform(
+            x, True, pointwise=(b, c, z),
+            post=tab("ninv_coset_inv_plain")), 20),
+        "coset_intt_pointwise_bound_ms": transform_bound(
+            1, log_n, 3 * n, 4)[0],
+        "one_stage_ms": cuda_ms(lambda: all_stages(cuda_mont.ntt_stage_,
+                                                   x.clone()), 20) / log_n,
+        "one_stage_bound_ms": bound(n // 2, 2 * n * VALUE_BYTES
+                                    + n // 2 * VALUE_BYTES)[0],
+        "quotient_ms": cuda_ms(lambda: P._quotient_plain(*evals, zinv), 20),
+        "quotient_bound_ms": quotient_bound(log_n)[0],
+    }
+    results["ntt_pass"].update(extra)
+    log("  ntt_pass: pass 1 (stages 0-{}, gather) {:.4f} ms, pass 2 "
+        "(stages {}-{}) {:.4f} ms; batch of 3 inverse {:.4f} ms (bound "
+        "{:.4f}); coset iNTT with the pointwise prologue {:.4f} ms (bound "
+        "{:.4f}); one-stage pass {:.4f} ms a stage (bound {:.4f}); the "
+        "quotient at 2^{} {:.4f} ms (bound {:.4f})".format(
+            ka - 1, extra["pass_ms"][0], s0b, log_n - 1, extra["pass_ms"][1],
+            extra["batch3_ms"], extra["batch3_bound_ms"],
+            extra["coset_intt_pointwise_ms"],
+            extra["coset_intt_pointwise_bound_ms"], extra["one_stage_ms"],
+            extra["one_stage_bound_ms"], log_n, extra["quotient_ms"],
+            extra["quotient_bound_ms"]))
+
+    # fold[fr]: lazy sums of up to 64 terms a row, and the edge rows
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    sums = torch.randint(0, 64 * 65536, (n, 16), generator=gen, device=dev,
+                         dtype=torch.int64)
+    sums[0] = 0
+    sums[1, :15], sums[1, 15] = 0xFFFF, (1 << 48) - 1
+    sums[2] = torch.tensor([((5 * FR.p) >> (16 * i)) & 0xFFFF
+                            for i in range(15)] + [(5 * FR.p) >> 240],
+                           device=dev)
+    folded = cuda_mont.fold(FR, sums)
+    if L.limbs_to_ints(folded[:3]) != [0, ((1 << 288) - 1) % FR.p, 0]:
+        raise AssertionError("fold[fr]: the edge rows are not V mod r")
+    record("fold[fr]", [folded], [cuda_mont.fold_plain(FR, sums)],
+           cuda_ms(lambda: cuda_mont.fold(FR, sums), 50),
+           cuda_ms(lambda: cuda_mont.fold_plain(FR, sums), 3),
+           bound(2 * n, n * (16 * 8 + VALUE_BYTES)))
+
+    # mont_mul[fr] at its prove widths: gathered, and the witness's to_mont
+    nv = WITNESS_ROWS
+    w = rand_fe(nv)
+    w[:3] = edges
+    r2 = FR.r2_limbs(dev)
+    results["mont_mul[fr]"].update(
+        to_mont_ms=cuda_ms(lambda: FR.mont_mul(w, r2), 50),
+        to_mont_bound_ms=bound(nv, 2 * nv * VALUE_BYTES)[0], gather=[])
+    log(f"  mont_mul[fr] at the witness's {nv} lanes (to_mont): "
+        f"{results['mont_mul[fr]']['to_mont_ms']:.4f} ms (bound "
+        f"{results['mont_mul[fr]']['to_mont_bound_ms']:.4f})")
+    for m in (GATHER_LANES, GATHER_WIDEST):
+        a = rand_fe(m)
+        a[:3] = edges
+        idx = torch.randint(0, nv, (m,), generator=gen, device=dev)
+        idx[:9] = torch.tensor([0, 1, 2] * 3, device=dev)
+        err = max_abs_err([FR.mont_mul(a, w, idx)],
+                          [cuda_mont.mont_mul_gather_plain(FR, a, w, idx)])
+        rows = int(torch.unique(idx).numel())
+        gbound = bound(m, (2 * m + rows) * VALUE_BYTES)
+        row = {"lanes": m, "table_rows": nv, "max_abs_err": err,
+               "ms": cuda_ms(lambda: FR.mont_mul(a, w, idx), 50),
+               "plain_ms": cuda_ms(lambda: cuda_mont.mont_mul_gather_plain(
+                   FR, a, w, idx), 3),
+               "bound_ms": gbound[0], "bound_by": gbound[1],
+               "index_select_then_mont_mul_ms": cuda_ms(
+                   lambda: FR.mont_mul(a, w.index_select(0, idx)), 50)}
+        results["mont_mul[fr]"]["gather"].append(row)
+        log(f"  mont_mul[fr] gathered, {m} lanes over {nv} rows: max_abs_err "
+            f"{err}  kernel {row['ms']:.4f} ms  (index_select, then "
+            f"mont_mul: {row['index_select_then_mont_mul_ms']:.4f})  plain "
+            f"{row['plain_ms']:.3f} ms  bound {gbound[0]:.4f} ms "
+            f"({gbound[1]})")
+        if err:
+            raise AssertionError("mont_mul[fr]: the gathered kernel "
+                                 f"disagrees with its plain version at {m} "
+                                 "lanes")
+
+
+def quotient_bound(log_n: int):
+    """The bound of groth16.prove._quotient_plain on 2^log_n rows: seven
+    transforms; the products of the two post tables (four transforms) and
+    of the pointwise step (two a row); three evaluations read, h written,
+    two twiddle and two post tables read."""
+    n = 1 << log_n
+    return bound(7 * log_n * n // 2 + 6 * n, (3 + 1 + 4) * n * VALUE_BYTES)
 
 
 def point_operands(curve, dev, n: int) -> dict:
@@ -647,10 +883,10 @@ def wei(eth) -> int:
     return int(Decimal(str(eth)) * 10 ** 18)
 
 
-def demo_batch(prover):
-    """The batch of the demo rollup on `prover`'s config: the operator state
-    after two deposits (operator/state.py), then the two signed transfers
-    of cli/main.py, prepared (the witness)."""
+def demo_txs(cfg):
+    """The batch of the demo rollup on `cfg`: the operator state after two
+    deposits (operator/state.py), then the two signed transfers of
+    cli/main.py. Returns (tree, txs)."""
     from zkrollup_torch.ref import eddsa
     from zkrollup_torch.tree.merkle import create_merkle_tree
     from zkrollup_torch.witness.assembler import (Transaction, format_tx,
@@ -660,7 +896,6 @@ def demo_batch(prover):
               % (2 ** 250))
     priv_b = (6876489714123326193969274478259787479864255376696894364275539418009183638325
               % (2 ** 250))
-    cfg = prover.cfg
     tree = create_merkle_tree(cfg.tree_depth, cfg.tree_zero_value)
     pubs = [eddsa.gen_public_key(k) for k in (priv_a, priv_b)]
     for pub in pubs:
@@ -671,30 +906,58 @@ def demo_batch(prover):
         tx = Transaction(0, 1, wei(amount), wei(fee), nonce)
         tx.signature = eddsa.sign(priv_a, format_tx(tx))
         txs.append(tx)
-    return prover.prepare_batch(tree, txs)
+    return tree, txs
+
+
+def demo_batch(prover):
+    """The demo rollup's batch, prepared (the witness)."""
+    return prover.prepare_batch(*demo_txs(prover.cfg))
+
+
+@contextlib.contextmanager
+def cuda_normalize_calls():
+    """Counts the calls of limbs.normalize (the carry loop that reads a
+    flag back to the host on every pass) on CUDA tensors while open."""
+    from zkrollup_torch.fields import limbs
+    orig, calls = limbs.normalize, [0]
+
+    def counted(t):
+        calls[0] += t.device.type == "cuda"
+        return orig(t)
+
+    limbs.normalize = counted
+    try:
+        yield calls
+    finally:
+        limbs.normalize = orig
 
 
 def main_path(dev, prover, launches):
     """Phase 4: one BatchProcessTx(2, 6) batch through the port's prover."""
     import random
     from zkrollup_torch import kernels
-    from zkrollup_torch.groth16.prove import prove_host
+    from zkrollup_torch.groth16.prove import prove, prove_host
     from zkrollup_torch.ref.bn254 import R as FR_MOD
 
     pk = prover.ensure_keys()
     r1cs = prover.structure_r1cs()
-    prep = demo_batch(prover)
+    tree, txs = demo_txs(prover.cfg)
+    prep = prover.prepare_batch(tree, txs)
     log(f"  witness {prep.witness_s:.3f} s, "
         f"{len(prep.public_signals)} public signals")
 
     r0, s0 = PINNED_RS
     kernels.reset_launches()
-    t0 = time.time()
-    proof = prover.prove_prepared(prep, r=r0, s=s0)
-    first_s = time.time() - t0
+    with cuda_normalize_calls() as norm:
+        t0 = time.time()
+        proof = prover.prove_prepared(prep, r=r0, s=s0)
+        first_s = time.time() - t0
     count_path(launches, "prove")
+    launches["prove_normalize_cuda"] = norm[0]
     log(f"  first proof on {dev} with the card-made key (self-verified): "
-        f"{first_s:.3f} s {prover.stats.stages}")
+        f"{first_s:.3f} s (prove {prover.stats.prove_s:.3f}, verify "
+        f"{prover.stats.verify_s:.3f}); limbs.normalize on CUDA tensors "
+        f"{norm[0]} times")
 
     t0 = time.time()
     host = prove_host(pk, r1cs, prep.witness, r=r0, s=s0)
@@ -712,6 +975,20 @@ def main_path(dev, prover, launches):
     if (bal_a, nonce_a, bal_b) != (wei(0.57), 2, wei(1.4)):
         raise AssertionError("unexpected final balances")
 
+    t0 = time.time()
+    bproof, signals, final_tree = prover.prove_batch(tree, txs, r=r0, s=s0)
+    log(f"  prove_batch (witness, proof, self-verify): "
+        f"{time.time() - t0:.3f} s")
+    if proof_bytes(bproof) != proof_bytes(proof):
+        raise AssertionError("prove_batch's proof differs from "
+                             "prove_prepared's and the native engine's")
+    if (signals != prep.public_signals
+            or final_tree.root != prep.final_tree.root):
+        raise AssertionError("prove_batch's public signals or final tree "
+                             "differ from prepare_batch's")
+    log("  its bytes equal prove_prepared's and the native engine's; its "
+        "public signals and final tree equal prepare_batch's")
+
     rng = random.Random(SEED)
     steady = []
     for i in range(3):
@@ -721,12 +998,96 @@ def main_path(dev, prover, launches):
         steady.append(time.time() - t0)
         st = prover.stats
         log(f"  proof {i + 1} at random (r, s): {steady[-1]:.3f} s, "
-            f"verified; stages " + ", ".join(
-                f"{k} {v:.3f}" for k, v in st.stages.items())
-            + f", verify {st.verify_s:.3f}")
+            f"verified; prove {st.prove_s:.3f}, verify {st.verify_s:.3f}")
     log(f"  steady state: {len(steady) / sum(steady):.3f} proofs/s "
-        f"(prove + self-verify, witness {prep.witness_s:.3f} s apart)")
+        f"(prove_prepared: prove + self-verify, no stage syncs; witness "
+        f"{prep.witness_s:.3f} s apart)")
+    for i in range(2):
+        stages = {}
+        t0 = time.time()
+        prove(pk, r1cs, prep.witness, r=r0, s=s0, device=dev, c=prover.c,
+              timings=stages)
+        log(f"  prove(timings=) {i + 1}: {time.time() - t0:.3f} s, stages "
+            "(a device synchronize after each) " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()))
+    profile_proof(dev, prover, prep)
     return prep, proof_bytes(proof)
+
+
+def profile_proof(dev, prover, prep):
+    """Phase 4: one steady proof (prove_prepared) under torch.profiler: the
+    device's busy share (the union of its kernels and copies over the
+    wall time), the device time by kernel name, peak device memory; then
+    evals_quotient's parts on the host clock, each ended by a device
+    synchronize, three times: the witness encoding (ints_to_limbs, the
+    copy, to_mont), _abc_evals and the quotient."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.groth16 import prove as P
+    from zkrollup_torch.groth16.qap import to_coo
+    from zkrollup_torch.ref.bn254 import R as FR_MOD
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prover.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_s = busy / 1e6
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.end - e.time_range.start
+            by_name[e.name][1] += 1
+    rows = sorted(((t, c, name) for name, (t, c) in by_name.items()),
+                  reverse=True)
+    total = sum(t for t, _, _ in rows) / 1e6
+    st = prover.stats
+    log(f"  profile of one steady proof (prove_prepared): wall "
+        f"{wall:.4f} s (prove {st.prove_s:.4f}, verify {st.verify_s:.4f}); "
+        f"device busy {busy_s:.4f} s, share {busy_s / wall:.3f} of the "
+        f"wall, {busy_s / st.prove_s:.3f} of prove; device time by name "
+        f"{total:.4f} s over {len(rows)} kernel names; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    if not rows:
+        log("  the profiler recorded no device time: not measured")
+    for t, count, key in rows[:16]:
+        log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+
+    coo = to_coo(prover.structure_r1cs())
+    m = coo.m
+    zinv = FR.const_mont(pow((pow(P.COSET_SHIFT, m, FR_MOD) - 1) % FR_MOD,
+                             FR_MOD - 2, FR_MOD), dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for i in range(3):
+        limbs, t_enc = timed(lambda: L.ints_to_limbs(
+            [w % FR_MOD for w in prep.witness]))
+        w_mont, t_dev = timed(lambda: FR.to_mont(L.to_device(limbs, dev)))
+        evals, t_abc = timed(lambda: P._abc_evals(P._coo_on(coo, dev),
+                                                  w_mont, m))
+        _, t_q = timed(lambda: P._quotient_plain(*evals, zinv))
+        log(f"  evals_quotient in parts {i + 1}: ints_to_limbs of "
+            f"{len(prep.witness)} ints {t_enc:.4f} s, copy and to_mont "
+            f"{t_dev:.4f} s, _abc_evals {t_abc:.4f} s, quotient {t_q:.4f} s")
 
 
 def keep_prove_operands(prover, prep):
@@ -922,17 +1283,15 @@ def glv_phase(dev, prover, prep, want_bytes, launches):
     first_s = time.time() - t0
     count_path(launches, "prove_glv")
     log(f"  first GLV proof (tree='jacobian', self-verified): {first_s:.3f} s"
-        f"; stages " + ", ".join(f"{k} {v:.3f}"
-                                 for k, v in gp.stats.stages.items()))
+        f" (prove {gp.stats.prove_s:.3f}, verify {gp.stats.verify_s:.3f})")
     if proof_bytes(proof) != want_bytes:
         raise AssertionError("the GLV proof differs from the default proof "
                              "and the native engine's")
     log("  its bytes equal the default proof's and the native engine's")
     t0 = time.time()
     gp.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
-    log(f"  second GLV proof: {time.time() - t0:.3f} s; stages "
-        + ", ".join(f"{k} {v:.3f}" for k, v in gp.stats.stages.items())
-        + f", verify {gp.stats.verify_s:.3f}")
+    log(f"  second GLV proof: {time.time() - t0:.3f} s (prove "
+        f"{gp.stats.prove_s:.3f}, verify {gp.stats.verify_s:.3f})")
 
 
 def tools_phase(dev, results, launches):
@@ -1000,7 +1359,9 @@ def ab_run(dev, bases: list, keep) -> list:
     proof's operands of g1_add's two widest launches and of one g1_madd_nd
     launch, and on one lane: every build bit for bit against the plain
     version, then timed in turns, base, this, this, base (cuda_ms, 20
-    calls, 264 on one lane)."""
+    calls, 264 on one lane). The fields unit is built from each base too,
+    for ab_fields; a fields.cu with the earlier C interface is bound as a
+    StageRoute."""
     import tempfile
     from zkrollup_torch import kernels
     from zkrollup_torch.curve.g1 import G1
@@ -1008,7 +1369,8 @@ def ab_run(dev, bases: list, keep) -> list:
 
     libs = kernels.load()
     curves = {"g1": G1, "g2": G2}
-    units = sorted({kernels._SIGS[k][0] for k in PROVE_SHAPES})
+    units = sorted({kernels._SIGS[k][0] for k in PROVE_SHAPES}
+                   | {"fields"})
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         try:
@@ -1034,7 +1396,9 @@ def ab_run(dev, bases: list, keep) -> list:
                         raise RuntimeError(f"nvcc failed on {base}/"
                                            f"{kernels.UNITS[u]}:\n"
                                            f"{err[-4000:]}")
-                    bound_libs[u] = kernels.bind(u, so)
+                    bound_libs[u] = (StageRoute(so) if u == "fields"
+                                     and StageRoute.is_stage_route(so)
+                                     else kernels.bind(u, so))
                 builds.append(bound_libs)
                 log(f"  base {base}:")
                 log_ptxas(ptxas_report(logs), "base ")
@@ -1044,7 +1408,8 @@ def ab_run(dev, bases: list, keep) -> list:
                     proc.kill()
                     proc.wait()
 
-        ops = {g: point_operands(curves[g], dev, 1 << 16) for g in units}
+        ops = {g: point_operands(curves[g], dev, 1 << 16)
+               for g in units if g in curves}
         proof_ops = {"g1_add": widest(adds), "g1_madd_nd": [madd]}
         cases = []     # (kernel, lanes, operands, curve, fn, plain, sub)
         for name in PROVE_SHAPES:
@@ -1085,17 +1450,224 @@ def ab_run(dev, bases: list, keep) -> list:
                         + " ".join(f"{t:.4f}" for t in ms["base"])
                         + " ms, this "
                         + " ".join(f"{t:.4f}" for t in ms["this"]) + " ms")
+            ab_fields(dev, runs, builds)
         finally:
             libs.update(own)
     return runs
+
+
+class StageRoute:
+    """The field route of a fields.cu with the earlier C interface
+    (mont_mul without an index, one butterfly launch a stage; commit
+    cea5215), as the Python of that commit ran
+    it: the NTT as an index_select gather, 17 butterfly launches and the
+    n^-1 and coset scalings as mont_mul launches; the quotient as three
+    iNTTs, three coset NTTs, the pointwise step with FR.sub's carry loop,
+    a coset iNTT and from_mont; the fold as _fold_lazy (the carry loop,
+    two products, FR.add); the spmv product as index_select, then
+    mont_mul."""
+
+    @staticmethod
+    def is_stage_route(so: str) -> bool:
+        import ctypes
+        return not hasattr(ctypes.CDLL(so), "zkt_ntt_pass_fr")
+
+    def __init__(self, so: str):
+        import ctypes
+        P, I64 = ctypes.c_void_p, ctypes.c_int64
+        self.lib = lib = ctypes.CDLL(so)
+        lib.zkt_mont_mul_fr.argtypes = [P, P, ctypes.c_int, P, I64, P]
+        lib.zkt_butterfly_fr.argtypes = [P, P, I64, I64, P]
+        lib.zkt_set_device.argtypes = [ctypes.c_int]
+        for fn in (lib.zkt_mont_mul_fr, lib.zkt_butterfly_fr,
+                   lib.zkt_set_device):
+            fn.restype = ctypes.c_int
+        self.tables = {}
+
+    def _call(self, fn, *args):
+        import torch
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"stage route: CUDA error {rc}")
+
+    def mont_mul(self, a, b):
+        import torch
+        out = torch.empty_like(a)
+        self.lib.zkt_set_device(a.device.index or 0)
+        self._call(self.lib.zkt_mont_mul_fr, a.data_ptr(), b.data_ptr(),
+                   int(b.numel() == 16 and a.numel() != 16), out.data_ptr(),
+                   a.numel() // 16)
+        return out
+
+    def butterfly(self, x, tw, m):
+        self._call(self.lib.zkt_butterfly_fr, x.data_ptr(), tw.data_ptr(),
+                   x.shape[0] // 2, m)
+
+    def _table(self, kind, log_n, dev):
+        from zkrollup_torch.fields import limbs as L
+        from zkrollup_torch.ntt import ntt
+        key = (kind, log_n)
+        if key not in self.tables:
+            if kind in ("tw", "tw_inv"):
+                t = [L.to_device(a, dev) for a in
+                     ntt._stage_twiddles_host(log_n, kind == "tw_inv")]
+            elif kind == "perm":
+                import torch
+                t = torch.from_numpy(ntt.bit_rev_perm(log_n)).to(dev)
+            else:
+                t = L.to_device(ntt._coset_powers_host(
+                    log_n, kind == "coset_inv"), dev)
+            self.tables[key] = t
+        return self.tables[key]
+
+    def ntt(self, a, inverse=False):
+        from zkrollup_torch.fields.mont import FR
+        n, dev = a.shape[0], a.device
+        log_n = n.bit_length() - 1
+        x = a.index_select(0, self._table("perm", log_n, dev))
+        for s, tw in enumerate(self._table("tw_inv" if inverse else "tw",
+                                           log_n, dev)):
+            self.butterfly(x, tw, 1 << s)
+        if inverse:
+            x = self.mont_mul(x, FR.const_mont(pow(n, FR.p - 2, FR.p), dev))
+        return x
+
+    def quotient(self, a_e, b_e, c_e, zinv):
+        from zkrollup_torch.fields import limbs as L
+        from zkrollup_torch.fields.mont import FR
+        log_n = a_e.shape[0].bit_length() - 1
+        coset = lambda x, inv: self.mont_mul(x, self._table(
+            "coset_inv" if inv else "coset", log_n, x.device))
+        ca, cb, cc = (self.ntt(coset(self.ntt(e, True), False))
+                      for e in (a_e, b_e, c_e))
+        h = self.mont_mul(FR.sub(self.mont_mul(ca, cb), cc), zinv)
+        h = coset(self.ntt(h, True), True)
+        return self.mont_mul(h, L.to_device(L.int_to_limbs(1), h.device))
+
+    def fold(self, sums):
+        import torch
+        from zkrollup_torch.fields import limbs as L
+        from zkrollup_torch.fields.mont import FR
+        n, dev = sums.shape[0], sums.device
+        ext = L.propagate_carries(torch.cat(
+            [sums, torch.zeros((n, 2), dtype=torch.int64, device=dev)], 1))
+        lo = ext[:, :16].to(L.DTYPE).contiguous()
+        hi = torch.cat([ext[:, 16:], torch.zeros(
+            (n, 14), dtype=torch.int64, device=dev)], 1).to(L.DTYPE)
+        return FR.add(self.mont_mul(lo, FR.one_mont(dev)),
+                      self.mont_mul(hi, FR.r2_limbs(dev)))
+
+    def gather_mul(self, a, w, idx):
+        return self.mont_mul(a, w.index_select(0, idx))
+
+
+def ab_fields(dev, runs, builds):
+    """--ab, the field route: on 2^17 rows (the (2,6) domain) the forward
+    transform, the inverse with n^-1, the quotient, the 17 stages as
+    one-stage passes (the butterfly launches) and the fold; the
+    gathered mont_mul at GATHER_LANES and GATHER_WIDEST over WITNESS_ROWS
+    and mont_mul[fr] at 2^17 and GATHER_LANES lanes. A base with the earlier C
+    interface runs
+    StageRoute; one with this interface runs this checkout's Python over
+    its library. Every result of every build equals this checkout's, bit
+    for bit; then timed in turns, base, this, this, base (cuda_ms, 20
+    calls)."""
+    import torch
+    from zkrollup_torch import kernels
+    from zkrollup_torch.fields import cuda_mont, limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.groth16 import prove as P
+    from zkrollup_torch.ntt import ntt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+
+    def fe(n):
+        a = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=dev,
+                          dtype=torch.int32)
+        a[:, 15] &= 0x0FFF
+        return a
+
+    n = 1 << DOMAIN_LOG
+    x, evals, zinv = fe(n), [fe(n) for _ in range(3)], fe(1)[0]
+    sums = torch.randint(0, 64 * 65536, (n, 16), generator=gen, device=dev,
+                         dtype=torch.int64)
+    a, w, b2 = fe(GATHER_WIDEST), fe(WITNESS_ROWS), fe(GATHER_LANES)
+    idx = torch.randint(0, WITNESS_ROWS, (GATHER_WIDEST,), generator=gen,
+                        device=dev)
+    a1, i1 = a[:GATHER_LANES].contiguous(), idx[:GATHER_LANES].contiguous()
+    a17, b17 = a[:n].contiguous(), b2[:n].contiguous()
+    tws = [fe(1 << s) for s in range(DOMAIN_LOG)]
+
+    def stages(stage, y):
+        for s, t in enumerate(tws):
+            stage(y, t, 1 << s)
+        return y
+
+    lanes = {"transform": n, "inverse transform": n, "quotient": n,
+             "17 one-stage passes": n, "fold[fr]": n,
+             "mont_mul[fr] gathered": GATHER_LANES,
+             "mont_mul[fr] gathered, widest": GATHER_WIDEST,
+             "mont_mul[fr] 2^17": n, "mont_mul[fr] 164,215": GATHER_LANES}
+    ours = {
+        "transform": lambda: ntt.transform(x),
+        "inverse transform": lambda: ntt.intt_mont(x),
+        "quotient": lambda: P._quotient_plain(*evals, zinv),
+        "17 one-stage passes": lambda: stages(
+            lambda y, t, m: cuda_mont.ntt_stage_(FR, y, t, m), x.clone()),
+        "fold[fr]": lambda: cuda_mont.fold(FR, sums),
+        "mont_mul[fr] gathered": lambda: FR.mont_mul(a1, w, i1),
+        "mont_mul[fr] gathered, widest": lambda: FR.mont_mul(a, w, idx),
+        "mont_mul[fr] 2^17": lambda: FR.mont_mul(a17, b17),
+        "mont_mul[fr] 164,215": lambda: FR.mont_mul(a1, b2),
+    }
+
+    def stage_route(r):
+        return {
+            "transform": lambda: r.ntt(x),
+            "inverse transform": lambda: r.ntt(x, True),
+            "quotient": lambda: r.quotient(*evals, zinv),
+            "17 one-stage passes": lambda: stages(r.butterfly, x.clone()),
+            "fold[fr]": lambda: r.fold(sums),
+            "mont_mul[fr] gathered": lambda: r.gather_mul(a1, w, i1),
+            "mont_mul[fr] gathered, widest": lambda: r.gather_mul(a, w, idx),
+            "mont_mul[fr] 2^17": lambda: r.mont_mul(a17, b17),
+            "mont_mul[fr] 164,215": lambda: r.mont_mul(a1, b2),
+        }
+
+    libs = kernels.load()
+    own = libs["fields"]
+    want = {k: fn() for k, fn in ours.items()}
+    for run, bound_libs in zip(runs, builds):
+        base = bound_libs["fields"]
+        stage = isinstance(base, StageRoute)
+        fns = {"base": stage_route(base) if stage else ours, "this": ours}
+        for name in ours:
+            ms = {"base": [], "this": []}
+            for b in ("base", "this", "this", "base"):
+                libs["fields"] = own if (b == "this" or stage) else base
+                if max_abs_err([fns[b][name]()], [want[name]]):
+                    raise AssertionError(f"{name} ({b} build of "
+                                         f"{run['base']}) disagrees with "
+                                         "this checkout's")
+                ms[b].append(cuda_ms(fns[b][name], 20))
+            libs["fields"] = own
+            run["rows"].append({"kernel": name, "lanes": lanes[name],
+                                "operands": "random",
+                                "route": "stages" if stage else "passes",
+                                **ms})
+            log(f"  {name:29s} base {run['base']} "
+                f"({'stage route' if stage else 'this route'}): "
+                + " ".join(f"{t:.4f}" for t in ms["base"]) + " ms, this "
+                + " ".join(f"{t:.4f}" for t in ms["this"]) + " ms")
 
 
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", metavar="CSRC", action="append", default=[],
-                    help="time the point kernels of PROVE_SHAPES against "
-                         "those built from CSRC")
+                    help="time the point kernels of PROVE_SHAPES and the "
+                         "field route against those built from CSRC")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "zkrollup_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -1179,6 +1751,7 @@ def main() -> int:
             cells.append(f"{count:7d} x {lanes / max(1, count):9.1f}")
         log(f"  {k:14s} " + " ".join(cells))
     check_prove_widths(launches["prove"])
+    check_prove_limits(launches)
     missing = [(p, k) for p, ks in PATHS.items() for k in ks
                if launches[p][k][0] <= 0]
     if missing:

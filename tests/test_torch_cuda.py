@@ -1,12 +1,14 @@
 """zkrollup_torch's CUDA kernels on the card.
 
 Each kernel wrapper against its plain PyTorch version on the same CUDA
-tensors, bit for bit (the integer-unit kernels of tools/profile_alu.py
-too); the NTT, the MSM window sums and the general MSM on the card against
-the same functions on the CPU; the bucket strategies and the GLV MSM
-against the native engine; the G2 point-kernel check; a small setup on the
-card against the native engine's; and the BatchProcessTx(2,6) proof
-against the native engine. Every test needs a CUDA device and skips
+tensors, bit for bit (the NTT pass with every prologue and epilogue, the
+lazy-sum fold, the gathered mont_mul, and the integer-unit kernels of
+tools/profile_alu.py too); the NTT, the quotient, the MSM window sums and
+the general MSM on the card against the same functions on the CPU; the
+bucket strategies and the GLV MSM against the native engine; the G2
+point-kernel check; a small setup on the card against the native engine's;
+TxProver.prove_batch against prove_prepared; and the BatchProcessTx(2,6)
+proof against the native engine. Every test needs a CUDA device and skips
 without one.
 
 The file imports neither JAX nor the zkrollup package, so it runs where JAX
@@ -80,6 +82,90 @@ def test_butterfly_kernel_matches_plain(cuda_device, m):
     assert torch.equal(got, want)
 
 
+def _ntt_operands(device, log_n, batch, seed):
+    """(batch, 2^log_n, 16) random canonical values with 0, 1 and r - 1 in
+    the first rows, and three (2^log_n, 16) tables."""
+    n = 1 << log_n
+    vals = _values(FR.p, batch * n, seed)
+    vals[:3] = [0, 1, FR.p - 1]
+    x = _limbs(vals, device).view(batch, n, 16)
+    tabs = [_limbs(_values(FR.p, n, seed + k), device) for k in (1, 2, 3)]
+    return x, tabs
+
+
+# (log_n, s0, k, bitrev, pre, post, batch): whole transforms in two passes,
+# later passes in place with strided sets, one-stage passes, the tables
+NTT_PASSES = [
+    (12, 0, 10, True, False, "none", 1),
+    (12, 10, 2, False, False, "table", 3),
+    (12, 0, 10, True, True, "bcast", 3),
+    (13, 4, 6, False, False, "table", 1),
+    (13, 12, 1, False, True, "none", 2),
+    (12, 0, 1, True, False, "table", 1),
+    (5, 0, 5, True, True, "table", 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NTT_PASSES)
+def test_ntt_pass_kernel_matches_plain(cuda_device, case):
+    log_n, s0, k, bitrev, use_pre, post_kind, batch = case
+    x, (tw, pre, post) = _ntt_operands(cuda_device, log_n, batch, 21)
+    post = {"none": None, "table": post, "bcast": post[5]}[post_kind]
+    kw = dict(bitrev=bitrev, pre=pre if use_pre else None, post=post)
+    got = cuda_mont.ntt_pass(FR, x, tw, s0, k, **kw)
+    want = cuda_mont.ntt_pass_plain(FR, x, tw, s0, k, **kw)
+    assert torch.equal(got, want)
+    if not bitrev:                          # in place
+        y = x.clone()
+        cuda_mont.ntt_pass(FR, y, tw, s0, k, out=y, **kw)
+        assert torch.equal(y, want)
+
+
+@pytest.mark.cuda
+def test_ntt_pass_pointwise_prologue_matches_plain(cuda_device):
+    """The quotient's first coset-iNTT pass: (x * b - c) * z on each row
+    as it is gathered, the plain-form post table on the way out."""
+    x, (tw, b, post) = _ntt_operands(cuda_device, 12, 1, 31)
+    c = _limbs(_values(FR.p, 1 << 12, 35), cuda_device)
+    z = _limbs(_values(FR.p, 1, 36), cuda_device)[0]
+    pw = (b, c, z)
+    for s0, k, kw in ((0, 10, dict(bitrev=True, pointwise=pw)),
+                      (0, 12 - 10, dict(bitrev=True, pointwise=pw,
+                                        post=post))):
+        got = cuda_mont.ntt_pass(FR, x[0], tw, s0, k, **kw)
+        want = cuda_mont.ntt_pass_plain(FR, x[0], tw, s0, k, **kw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fold_kernel_matches_plain(cuda_device):
+    """Random lazy sums of up to 300 canonical terms a limb, and the edge
+    rows V = 0, V = 2^288 - 1 and V = 5 r (V = 0 mod r)."""
+    rng = np.random.RandomState(8)
+    sums = torch.from_numpy(rng.randint(0, 300 * 65536, size=(4096, 16))
+                            .astype(np.int64))
+    sums[0] = 0
+    sums[1, :15] = 0xFFFF
+    sums[1, 15] = (1 << 48) - 1
+    sums[2] = torch.from_numpy(L.ints_to_limbs([5 * FR.p]).astype(np.int64))
+    sums = sums.to(cuda_device)
+    got = cuda_mont.fold(FR, sums)
+    assert torch.equal(got, cuda_mont.fold_plain(FR, sums))
+    assert L.limbs_to_ints(got[:3]) == [0, ((1 << 288) - 1) % FR.p, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+def test_mont_mul_gather_kernel_matches_plain(cuda_device, F):
+    a = _limbs(_values(F.p, 3000, 9), cuda_device)
+    b = _limbs(_values(F.p, 700, 10), cuda_device)
+    idx = torch.from_numpy(np.random.RandomState(11).randint(
+        0, 700, size=3000)).to(cuda_device)
+    assert torch.equal(F.mont_mul(a, b, idx),
+                       cuda_mont.mont_mul_gather_plain(F, a, b, idx))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_operands(cuda_device):
     a = torch.zeros((8, 16), dtype=torch.int32, device=cuda_device)
@@ -93,6 +179,15 @@ def test_kernel_wrappers_reject_bad_operands(cuda_device):
         FR.mont_mul(a, a.cpu())                    # device
     with pytest.raises(ValueError):
         cuda_mont.ntt_stage_(FR, a, a[:2], 4)      # twiddle table size
+    with pytest.raises(ValueError):                # gather in place
+        cuda_mont.ntt_pass(FR, a, a, 0, 3, out=a, bitrev=True)
+    with pytest.raises(ValueError):                # stages past n
+        cuda_mont.ntt_pass(FR, a, a, 2, 2)
+    with pytest.raises(ValueError):                # int32 sums
+        cuda_mont.fold(FR, a)
+    with pytest.raises(ValueError):                # int32 index
+        FR.mont_mul(a, a, torch.zeros(8, dtype=torch.int32,
+                                      device=cuda_device))
     p = g1.G1.infinity((8,), cuda_device)
     with pytest.raises(ValueError):
         g1.G1.add(p, g1.G1.infinity((4,), cuda_device))
@@ -230,6 +325,18 @@ def test_ntt_on_cuda_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_quotient_on_cuda_matches_cpu(cuda_device):
+    from zkrollup_torch.groth16 import prove as P
+    evals = [L.to_device(FR.to_mont_host(_values(FR.p, 1 << 10, 40 + k)),
+                         "cpu") for k in range(3)]
+    zinv = FR.const_mont(12345, "cpu")
+    want = P._quotient_plain(*evals, zinv)
+    got = P._quotient_plain(*(e.to(cuda_device) for e in evals),
+                            zinv.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_window_sums_on_cuda_match_cpu(cuda_device):
     """Four G1 tables at c = 8 through the fused scan. The kernels and the
     plain versions follow one formula, so the window sums agree limb for
@@ -350,6 +457,49 @@ def test_tx_2_6_proof_on_cuda_equals_native_engine(cuda_device):
     proof = prover.prove_prepared(prep, r=5, s=6)   # raises unless it verifies
     want = prove_host(pk, prover.structure_r1cs(), prep.witness, r=5, s=6)
     assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+
+
+def _tx_batch(prover, priv):
+    """Two signed transfers between two funded accounts, prepared."""
+    from zkrollup_torch.ref import eddsa
+    from zkrollup_torch.tree.merkle import create_merkle_tree
+    from zkrollup_torch.witness.assembler import (Transaction, format_tx,
+                                                  hash_balance_tree_leaf)
+    cfg = prover.cfg
+    tree = create_merkle_tree(cfg.tree_depth)
+    for k in (priv, priv + 1):
+        leaf = {"publicKey": list(eddsa.gen_public_key(k)),
+                "balance": 10 ** 18, "nonce": 0}
+        tree.insert_(hash_balance_tree_leaf(leaf), leaf)
+    txs = []
+    for nonce in range(1, cfg.batch_size + 1):
+        tx = Transaction(0, 1, 10 ** 17, 10 ** 15, nonce)
+        tx.signature = eddsa.sign(priv, format_tx(tx))
+        txs.append(tx)
+    return tree, txs
+
+
+@pytest.mark.cuda
+def test_prove_batch_on_cuda_equals_prove_prepared(cuda_device):
+    """BatchProcessTx(1, 4): prove_batch at pinned (r, s) gives
+    prove_prepared's proof bytes, its public signals and its final tree,
+    and the native engine's proof."""
+    from zkrollup_torch.config import RollupConfig
+    from zkrollup_torch.groth16.prove import prove_host
+    from zkrollup_torch.operator.prover import TxProver
+    prover = TxProver(RollupConfig(batch_size=1, tree_depth=4),
+                      setup_seed=b"zkrollup-test-seed", device=cuda_device)
+    tree, txs = _tx_batch(prover, 41516261718191101)
+    proof, signals, final = prover.prove_batch(tree, txs, r=5, s=6)
+    prep = prover.prepare_batch(tree, txs)
+    want = prover.prove_prepared(prep, r=5, s=6)
+    host = prove_host(prover.pk, prover.structure_r1cs(), prep.witness,
+                      r=5, s=6)
+    assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+    assert (proof.a, proof.b, proof.c) == (host.a, host.b, host.c)
+    assert signals == prep.public_signals
+    assert final.root == prep.final_tree.root
+    assert prover.stats.stages == {}
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 Counterpart of zkrollup/fields/mont.py: R = 2^256, values are (..., 16)
 limb tensors in Montgomery form. Every op takes int32 or int64 limb
 tensors on one device and returns int32. `mont_mul` goes through the CUDA
-kernel wrapper in cuda_mont.py (its plain PyTorch version on CPU tensors);
-add, sub and neg are plain tensor code on every device.
+kernel wrapper in cuda_mont.py (its plain PyTorch version on CPU tensors),
+and so does neg, a product by -1; add and sub are plain tensor code on
+every device.
 """
 
 from __future__ import annotations
@@ -91,14 +92,19 @@ class FieldCtx:
                         both[0]).to(L.DTYPE)
 
     def neg(self, a):
-        d, _ = L.sub_with_borrow(self.mod_limbs(a.device), a)
-        return L.select(L.is_zero(a), a.to(torch.int64), d).to(L.DTYPE)
+        """(-a) mod p as one Montgomery product by -1 in Montgomery form,
+        (p - a) R R^-1: canonical, 0 for 0, and on CUDA one mont_mul
+        launch with no carry loop."""
+        return self.mont_mul(a.to(L.DTYPE).contiguous(),
+                             self._const("neg_one", L.int_to_limbs(
+                                 self.p - self.r_mod_p), a.device))
 
-    def mont_mul(self, a, b):
-        """Montgomery product a*b*2^-256 mod p. a < 2^256 and b < p as
-        canonical 16-bit limbs; the CUDA kernel takes same-shape operands
-        or a single broadcast b."""
-        return cuda_mont.mont_mul(self, a, b)
+    def mont_mul(self, a, b, idx=None):
+        """Montgomery product a*b*2^-256 mod p (a*b[idx]*2^-256 with an
+        int64 row index idx). a < 2^256 and b < p as canonical 16-bit
+        limbs; the CUDA kernel takes same-shape operands, a single
+        broadcast b, or b gathered by idx."""
+        return cuda_mont.mont_mul(self, a, b, idx)
 
     def mont_pow_const(self, a, e: int):
         """a^e (Montgomery domain) for a host exponent e, batched:

@@ -4,17 +4,22 @@ Counterpart of the device branch of zkrollup/groth16/prove.py:prove:
 
   1. witness -> Montgomery limbs (mont_mul kernel)
   2. sparse A/B/C evaluation over the domain: one Montgomery product per
-     term, per-limb int64 index_add_ into the rows, two-product fold mod r
-  3. quotient h = (A*B - C)/Z on the coset g*H: 3 iNTT, 3 coset NTT, a
-     pointwise step and 1 coset iNTT (butterfly and mont_mul kernels)
-  4. per-table scalars, duplicate key points merged (_filt_dedup)
+     term with the witness gathered by the kernel, per-limb int64
+     index_add_ into the rows, the fold mod r (fold kernel)
+  3. quotient h = (A*B - C)/Z on the coset g*H: one batched iNTT of A, B,
+     C with the coset shift in its last pass, one batched NTT, one coset
+     iNTT with the pointwise step in its first pass (ntt_pass kernel, two
+     passes a transform)
+  4. per-table scalars, duplicate key points merged (_filt_dedup), the
+     merged sums folded mod r (fold kernel)
   5. one fused 4-table G1 MSM (chunked scan, g1_madd_nd / g1_add kernels);
      with glv=True instead four GLV MSMs over the full a, b1, c and h
      tables (msm/glv.py:msm_glv), each with the host Horner combine
   6. one G2 MSM over the deduplicated b2 table (g2_madd_nd / g2_add with
-     the default tree="scan")
+     the default tree="scan"), enqueued before the host waits for the G1
+     window sums, so that the card runs it while the host combines G1
   7. window sums to standard form on the device (mont_mul over Fq), one
-     copy to the host, Horner combine and blinding there
+     copy to the host each, Horner combine and blinding there
 
 `tree` picks the bucket strategy of every single-table window sum (msm.py:
 TREES): the G2 MSM, and with glv=True the four G1 MSMs. The fused G1 MSM
@@ -40,8 +45,9 @@ from ..native import engine
 from ..ref import bn254 as ref
 from ..ref.bn254 import R as FR_MOD
 from ..fields.mont import FR, FQ
-from ..fields import limbs as L
-from ..ntt.ntt import intt_mont, coset_ntt_mont, coset_intt_mont, COSET_SHIFT
+from ..fields import cuda_mont, limbs as L
+from ..ntt import ntt
+from ..ntt.ntt import COSET_SHIFT
 from ..curve import g1 as g1_mod
 from ..curve.g1 import G1
 from ..curve.g2 import G2
@@ -52,28 +58,13 @@ from .keys import ProvingKey, Proof
 from .qap import to_coo
 
 
-def _fold_lazy(sums: torch.Tensor) -> torch.Tensor:
-    """(n, 16) lazy int64 limb sums V (< 2^288) -> V mod r, as int32 limbs.
-    V = lo + hi*2^256, so V mod r = mont(lo, R) + mont(hi, R^2): the
-    result is in the same (plain or Montgomery) form as the summands."""
-    n, dev = sums.shape[0], sums.device
-    ext = L.propagate_carries(torch.cat(
-        [sums, torch.zeros((n, 2), dtype=torch.int64, device=dev)], 1))
-    lo = ext[:, :L.N_LIMBS].to(L.DTYPE).contiguous()
-    hi = torch.cat([ext[:, L.N_LIMBS:],
-                    torch.zeros((n, L.N_LIMBS - 2), dtype=torch.int64,
-                                device=dev)], 1).to(L.DTYPE)
-    return FR.add(FR.mont_mul(lo, FR.one_mont(dev)),
-                  FR.mont_mul(hi, FR.r2_limbs(dev)))
-
-
 def _spmv(row, var, coeff_mont, w_mont, m: int) -> torch.Tensor:
     """eval[j] = sum_{k in row j} coeff_k * w[var_k] mod r (Montgomery)."""
-    terms = FR.mont_mul(coeff_mont, w_mont.index_select(0, var))
+    terms = FR.mont_mul(coeff_mont, w_mont, var)
     sums = torch.zeros((m, L.N_LIMBS), dtype=torch.int64,
                        device=terms.device)
     sums.index_add_(0, row, terms.to(torch.int64))
-    return _fold_lazy(sums)
+    return cuda_mont.fold(FR, sums)
 
 
 def _abc_evals(coo_dev, w_mont, m: int):
@@ -83,11 +74,20 @@ def _abc_evals(coo_dev, w_mont, m: int):
 
 def _quotient_plain(a_e, b_e, c_e, zinv_mont) -> torch.Tensor:
     """Domain evaluations (Montgomery) -> h coefficients in PLAIN form.
-    Z(g*w^i) = g^m - 1 is constant on the coset."""
-    pa, pb, pc = intt_mont(a_e), intt_mont(b_e), intt_mont(c_e)
-    ca, cb, cc = coset_ntt_mont(pa), coset_ntt_mont(pb), coset_ntt_mont(pc)
-    h_cos = FR.mont_mul(FR.sub(FR.mont_mul(ca, cb), cc), zinv_mont)
-    return FR.from_mont(coset_intt_mont(h_cos))
+    Z(g*w^i) = g^m - 1 is constant on the coset. Three transforms of
+    (A, B, C) at once: the iNTT with n^-1 g^i on each coefficient (its
+    scaling and the coset shift in one product), the forward NTT, then one
+    coset iNTT whose first pass forms (A*B - C) * Z^-1 from the three as
+    it loads them and whose last multiplies by n^-1 g^-i in plain form
+    (that product also leaves the Montgomery domain). The same h as the
+    reference's intt / coset_ntt / pointwise / coset_intt / from_mont."""
+    log_n = ntt._log2(a_e.shape[0])
+    tab = lambda kind: ntt._TABLES.get(kind, log_n, a_e.device)
+    abc = torch.stack([a_e, b_e, c_e]).to(L.DTYPE)
+    coeffs = ntt.transform(abc, True, post=tab("ninv_coset"))
+    ev = ntt.transform(coeffs)
+    return ntt.transform(ev[0], True, pointwise=(ev[1], ev[2], zinv_mont),
+                         post=tab("ninv_coset_inv_plain"))
 
 
 def _filt_dedup(x, y, inf, scalar_idx):
@@ -180,7 +180,7 @@ def _segsum_scalars(scalars, seg, n_seg: int) -> torch.Tensor:
     sums = torch.zeros((n_seg, L.N_LIMBS), dtype=torch.int64,
                        device=scalars.device)
     sums.index_add_(0, seg, scalars.to(torch.int64))
-    return _fold_lazy(sums)
+    return cuda_mont.fold(FR, sums)
 
 
 def _scalars_cat(w_plain, h_plain, pack) -> torch.Tensor:
@@ -197,12 +197,25 @@ def _scalars_cat(w_plain, h_plain, pack) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _to_host_standard(curve, wsum) -> list:
+def _to_host_standard(curve, wsum):
     """Window sums -> standard form on the device (FQ.from_mont), then ONE
-    device-to-host copy. Returns the point with numpy leaves."""
-    leaves = [FQ.from_mont(a.contiguous()) for a in curve.leaves(wsum)]
-    host = torch.stack(leaves).cpu().numpy()
-    return curve.from_leaves(list(host))
+    device-to-host copy, on the stream without waiting for it on a CUDA
+    device: into pinned host memory, with an event recorded behind it.
+    Returns a function that waits for that event alone and gives the point
+    with numpy leaves."""
+    leaves = torch.stack([FQ.from_mont(a.contiguous())
+                          for a in curve.leaves(wsum)])
+    if leaves.device.type != "cuda":
+        return lambda: curve.from_leaves(list(leaves.numpy()))
+    host = torch.empty(leaves.shape, dtype=leaves.dtype, pin_memory=True)
+    host.copy_(leaves, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(leaves.device))
+
+    def wait():
+        done.synchronize()
+        return curve.from_leaves(list(host.numpy()))
+    return wait
 
 
 def _blind_combine(pk: ProvingKey, pi_a_msm, pi_b_msm, pi_b1_msm, pi_c_msm,
@@ -246,7 +259,8 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
     r, s pin the blinding (same inputs, same key => same proof bytes). c is
     the Pippenger window; proofs do not depend on it, nor on glv (the GLV
     G1 MSMs) or tree (the bucket strategy, msm.TREES). If `timings` is a
-    dict, each stage synchronises the device and records its seconds."""
+    dict, each stage synchronises the device and records its seconds (and
+    the G2 MSM then no longer overlaps the host's G1 combine)."""
     r, s = _check_rs(pk, r1cs, r, s)
     msm._check_tree(tree)
     device = torch.device(device)
@@ -288,21 +302,24 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
         sc_cat = _scalars_cat(w_plain, h_plain, pack)
         wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
                                           pack["bounds"], distinct=True)
-        wsum1 = _to_host_standard(G1, wsum1)
+        wsum1_host = _to_host_standard(G1, wsum1)
     stage("msm_g1")
 
+    # the G2 MSM is enqueued before the host waits for the G1 window sums
+    # (zkrollup/groth16/prove.py:460-486): without timings the card runs it
+    # while the host combines G1
     g2p = _device_pack_g2(pk, device)
     sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]), g2p["seg"],
                           g2p["n_seg"])
     wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2, c=min(c, 12),
                                 distinct=True, tree=tree)
-    wsum2 = _to_host_standard(G2, wsum2)
+    wsum2_host = _to_host_standard(G2, wsum2)
     stage("msm_g2")
 
     if not glv:
-        g1_pts = combine_multi_window_sums_host(wsum1, c1)
+        g1_pts = combine_multi_window_sums_host(wsum1_host(), c1)
     pi_a, pi_b1, pi_c, pi_h = g1_pts
-    pi_b = combine_window_sums_host_g2(wsum2, c2)
+    pi_b = combine_window_sums_host_g2(wsum2_host(), c2)
     proof = _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
     stage("combine")
     return proof

@@ -44,10 +44,13 @@ _ALU = [_P, _P, _P, _I64, ctypes.c_int, _P]
 # kernel name -> (source unit, C symbol, argtypes)
 _SIGS = {
     "mont_mul[fr]": ("fields", "zkt_mont_mul_fr",
-                     [_P, _P, ctypes.c_int, _P, _I64, _P]),
+                     [_P, _P, _P, ctypes.c_int, _P, _I64, _P]),
     "mont_mul[fq]": ("fields", "zkt_mont_mul_fq",
-                     [_P, _P, ctypes.c_int, _P, _I64, _P]),
-    "butterfly": ("fields", "zkt_butterfly_fr", [_P, _P, _I64, _I64, _P]),
+                     [_P, _P, _P, ctypes.c_int, _P, _I64, _P]),
+    "ntt_pass": ("fields", "zkt_ntt_pass_fr",
+                 [_P, _P, _P, _I64, _P, _P, ctypes.c_int, _P, _P, _P, _I64,
+                  _I64] + [ctypes.c_int] * 4 + [_P]),
+    "fold[fr]": ("fields", "zkt_fold_fr", [_P, _P, _P, _P, _I64, _P]),
     **{f"{g}_{k}": (g, f"zkt_{g}_{k}", _POINT) for g in ("g1", "g2")
        for k in ("add", "madd_nd", "double", "madd", "add_nd", "add_z01")},
     **{f"alu_{op}": ("alu", f"zkt_alu_{op}", _ALU)
@@ -162,7 +165,7 @@ def launch(name: str, device: torch.device, *args, lanes: int) -> None:
     """Launch kernel `name` on `device`'s current PyTorch stream. `args` are
     the kernel's arguments before the stream (data pointers as ints);
     `lanes` is the launch's count of work items (points, products,
-    butterflies), summed in LANES and counted by width in WIDTHS."""
+    rows, butterflies), summed in LANES and counted by width in WIDTHS."""
     unit, sym, _ = _SIGS[name]
     lib = load()[unit]
     rc = lib.zkt_set_device(device.index or 0)

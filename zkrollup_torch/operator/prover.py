@@ -12,7 +12,7 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..config import RollupConfig
 from ..r1cs.circuits import synthesize_batch_process_tx
@@ -47,7 +47,9 @@ def _dummy_tx_inputs(batch_size: int, depth: int) -> Dict:
 
 @dataclass
 class ProveStats:
-    """Seconds per stage of the last proof (stages: see groth16.prove)."""
+    """Seconds of the last proof's witness, prove and verify; `stages`
+    stays empty unless a caller fills it (prove(timings=) synchronises the
+    device after each stage, so the operator's proofs do not ask for it)."""
     witness_s: float = 0.0
     prove_s: float = 0.0
     verify_s: float = 0.0
@@ -93,6 +95,9 @@ class TxProver:
             self._r1cs = self.structure().r1cs
         return self._r1cs
 
+    # the reference's name (zkrollup/operator/prover.py:100)
+    _structure_r1cs = structure_r1cs
+
     def ensure_keys(self) -> ProvingKey:
         """The cached key when its R1CS digest matches, else a new key from
         the setup on this prover's device (saved to key_path if given)."""
@@ -132,15 +137,23 @@ class TxProver:
                        s: Optional[int] = None) -> Proof:
         """Device stage: prove, then the mandatory self-verify."""
         pk = self.ensure_keys()
-        stages: Dict[str, float] = {}
         t0 = time.time()
         proof = prove(pk, self.structure_r1cs(), prep.witness, r=r, s=s,
                       device=self.device, c=self.c, glv=self.glv,
-                      tree=self.tree, timings=stages)
+                      tree=self.tree)
         self.stats.prove_s = time.time() - t0
-        self.stats.stages = stages
         t0 = time.time()
         if not verify(pk.vk, proof, prep.public_signals):
             raise RuntimeError("Invalid proof generated")
         self.stats.verify_s = time.time() - t0
         return proof
+
+    def prove_batch(self, tree: MerkleTree, txs: List[Transaction],
+                    r: Optional[int] = None, s: Optional[int] = None
+                    ) -> Tuple[Proof, List[int], MerkleTree]:
+        """Assemble inputs from the tree snapshot, synthesize the witness,
+        prove, self-verify. Returns (proof, public inputs, final tree)."""
+        self.ensure_keys()
+        prep = self.prepare_batch(tree, txs)
+        proof = self.prove_prepared(prep, r=r, s=s)
+        return proof, prep.public_signals, prep.final_tree
