@@ -8,10 +8,11 @@ Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
   1. build the CUDA kernels (four nvcc processes at once, one per source of
      zkrollup_torch/csrc, with each kernel's registers, spill and stack
-     frame from the ptxas report; the four kernels of the prove path's MSMs
-     with launch bounds, g1_add, g1_madd_nd, g2_add and g2_madd_nd, must
-     not spill) and the native host engine (g++, from native/src into
-     build/native), with seconds
+     frame from the ptxas report; the six point kernels with launch bounds,
+     g1_add, g1_madd_nd, g1_madd, g2_add, g2_madd_nd and g2_madd, must not
+     spill, the first four logged beside their registers before g1_madd
+     and g2_madd moved) and the native host engine (g++, from native/src
+     into build/native), with seconds
   2. every kernel instantiation against its plain PyTorch version on the
      card, bit for bit, at the main path's widths, with both times and the
      kernel's bound (the least time the card could take for the work);
@@ -24,14 +25,24 @@ Phases; any failure raises and the script exits non-zero:
      the double also on one lane, the width of the MSM's Horner; the four
      point kernels of PROVE_SHAPES (g1_madd_nd, g1_add, g2_madd_nd,
      g2_add) also at the prove path's lanes per launch (timed there beside
-     the bound at that width; the G1 two also at WAVE_LANES), on ragged
-     launches of 1, 22 and 33 lanes and on one lane (timed); the six
+     the bound at that width; the G1 two also at WAVE_LANES), the two of
+     SETUP_SHAPES (g1_madd, g2_madd) also at the setup's lanes per launch
+     and the msm paths' (timed there) and on the warp-vote cases (a warp
+     of distinct pairs with one P + P lane, a warp of infinity + infinity,
+     ragged launches of 33 and 1,025 lanes with P + P in the last warp),
+     all six on ragged launches of 1, 22 and 33 lanes and on one lane
+     (timed); the six
      integer-unit kernels at the width and reps of phase 7's rate run (and
      at a small width)
   3. setup on the card: TxProver for the default BatchProcessTx(2, 6)
      config makes its key from a fixed seed with the fixed-base tables on
      the GPU (never read from a cache); setup_host makes the same key on
-     the native engine; the two must be equal byte for byte
+     the native engine; the two must be equal byte for byte; the setup
+     path's widest launches of g1_madd and g2_madd must be SETUP_SHAPES,
+     32 each, mont_mul[fq] at most 1,000; its peak device memory; then
+     the setup in parts on the host clock (the scalar derivation, the
+     window tables, the scalars' encoding, each table's fixed-base loop and
+     normalisation, the copies back, _key), whose key must be the same
   4. the main path: two deposits, the two signed transfers of the demo
      rollup, one proof with the card-made key at pinned (r, s) that must
      self-verify and equal the native engine's proof byte for byte (the
@@ -71,10 +82,11 @@ The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
 
-With --ab, phases 0 and 1 only, then the four point kernels of
-PROVE_SHAPES of this checkout against those built from each CSRC directory
-(another commit's zkrollup_torch/csrc unpacked with `git archive`, or an
-edited copy of this one's), on phase 2's operands and on one proof's own,
+With --ab, phases 0 and 1 only, then the point kernels of PROVE_SHAPES
+and SETUP_SHAPES of this checkout against those built from each CSRC
+directory (another commit's zkrollup_torch/csrc unpacked with `git
+archive`, or an edited copy of this one's), on phase 2's operands and on
+one proof's own,
 and the field route (a 2^17 transform, the quotient, the fold, mont_mul at
 its prove widths) against each CSRC's fields.cu, through the stage-by-stage
 route where it has the earlier C interface (one butterfly launch a stage, as
@@ -206,12 +218,34 @@ PROVE_SHAPES = {"g1_madd_nd": (74_492,), "g1_add": (360_448, 360_360),
 # one wave of the one-thread G1 kernels at 16 warps an SM: 132 x 512 lanes
 WAVE_LANES = 67_584
 RAGGED = (1, 22, 33)
+# lanes per launch of the setup's fixed-base steps (32 a table, one chunk
+# a table: msm/fixed_base.py): the (2,6) key's five G1 tables as one,
+# 482,413 scalars, and its b2 table's 117,114; phase 3 fails unless they
+# are the widest launches of these kernels on the setup path. The msm
+# paths launch the same kernels at MSM_MADD_LANES (22 windows x 1,024
+# chunks of the scan leg).
+SETUP_SHAPES = {"g1_madd": (482_413,), "g2_madd": (117_114,)}
+MSM_MADD_LANES = 22_528
+# launches on the setup path (phase 3): 32 fixed-base steps a table, and
+# mont_mul[fq] (the normalisation's Fermat inversion, about 360 launches,
+# and its few products, once a table)
+SETUP_LIMITS = {"g1_madd": (32, 32), "g2_madd": (32, 32),
+                "mont_mul[fq]": (1, 1000)}
+# lanes a warp holds: one thread a G1 lane, two a G2 lane (thread pairs)
+WARP_LANES = {"g1": 32, "g2": 16}
+VOTE_CASES = ("one_p_plus_p", "inf_plus_inf", "ragged_33", "ragged_1025")
 # kernel entries with launch bounds of 128 threads and this many blocks an
 # SM (csrc/g1.cu, csrc/points.cuh's PAIR_MIN_BLOCKS); phase 1 fails if one
 # of them is missing from the ptxas report, spills, or takes more
 # registers than that many blocks leave
 MIN_BLOCKS = {"g1_add_kernel": 3, "g1_madd_nd_kernel": 4,
-              "jac_add_pair_kernel": 3, "jac_madd_nd_pair_kernel": 3}
+              "g1_madd_kernel": 3, "jac_add_pair_kernel": 3,
+              "jac_madd_nd_pair_kernel": 3, "jac_madd_pair_kernel": 3}
+# ptxas registers of the kernels built before g1_madd and g2_madd moved
+# onto FqCall and thread pairs (CUDA 12.8, sm_90a), which that move must not
+# change; phase 1 logs them beside this build's
+EARLIER_REGS = {"g1_add_kernel": 149, "g1_madd_nd_kernel": 124,
+                "jac_add_pair_kernel": 168, "jac_madd_nd_pair_kernel": 150}
 # the g1_madd_nd launch of a proof whose operands phase 4 keeps: the middle
 # step of the scan leg's 127 (the accumulator a sum of 64 points)
 MADD_ND_KEPT = 63
@@ -287,8 +321,11 @@ def check_spill(ptxas: dict) -> None:
             bad.append(f"{name}: {len(found)} entries in the ptxas report")
             continue
         (regs, spill, _), = (v for _, v in found)
+        was = EARLIER_REGS.get(name)
         log(f"  {name}: launch bounds (128, {blocks}), {regs} registers, "
-            f"{spill} bytes spill stores")
+            f"{spill} bytes spill stores"
+            + ("" if was is None else f" (before g1_madd and g2_madd moved:"
+               f" {was} registers, {'same' if was == regs else 'CHANGED'})"))
         if spill or resident_warps(regs) < 4 * blocks:
             bad.append(f"{name}: {regs} registers, {spill} bytes spill "
                        f"stores at (128, {blocks})")
@@ -299,35 +336,40 @@ def check_spill(ptxas: dict) -> None:
                              + "; ".join(bad))
 
 
-def check_prove_widths(prove: dict) -> None:
-    """Phase 8: PROVE_SHAPES, the widths at which phase 2 holds and times
-    the point kernels of the MSMs, must be the widest launches of the prove
-    path."""
-    for name, shapes in PROVE_SHAPES.items():
-        widths = prove[name][2]
-        log(f"  {name} on prove, launches at each width: "
+def check_widest(path: str, counts: dict, shapes: dict) -> None:
+    """Phases 3 and 8: `shapes` (PROVE_SHAPES, SETUP_SHAPES), the widths at
+    which phase 2 holds and times those point kernels, must be the widest
+    launches of `path` (counts: count_path's entry of it)."""
+    for name, want in shapes.items():
+        widths = counts[name][2]
+        log(f"  {name} on {path}, launches at each width: "
             + ", ".join(f"{w} x {c}" for w, c in sorted(widths.items(),
                                                         reverse=True)))
-        widest = tuple(sorted(widths, reverse=True)[:len(shapes)])
-        if widest != shapes:
-            raise AssertionError(f"{name}: the prove path's widest launches "
-                                 f"are {widest}, PROVE_SHAPES says {shapes}")
+        widest = tuple(sorted(widths, reverse=True)[:len(want)])
+        if widest != want:
+            raise AssertionError(f"{name}: the {path} path's widest launches"
+                                 f" are {widest}, the script says {want}")
+
+
+def check_limits(path: str, counts: dict, limits: dict) -> None:
+    """Phases 3 and 8: each kernel of `limits` launched within its range on
+    `path` (PROVE_LIMITS, SETUP_LIMITS)."""
+    for name, (lo, hi) in limits.items():
+        count = counts[name][0]
+        log(f"  {name} on {path}: {count} launches (allowed {lo}-{hi}), "
+            "lanes at each width: " + ", ".join(
+                f"{w} x {c}" for w, c in sorted(counts[name][2].items(),
+                                                reverse=True)))
+        if not lo <= count <= hi:
+            raise AssertionError(f"{name}: {count} launches on {path}, "
+                                 f"allowed {lo}-{hi}")
 
 
 def check_prove_limits(launches) -> None:
     """Phase 8: the field kernels' launches on the prove path within
     PROVE_LIMITS, and limbs.normalize never reached on a CUDA tensor
     during that proof."""
-    prove = launches["prove"]
-    for name, (lo, hi) in PROVE_LIMITS.items():
-        count = prove[name][0]
-        log(f"  {name} on prove: {count} launches (allowed {lo}-{hi}), "
-            "lanes at each width: " + ", ".join(
-                f"{w} x {c}" for w, c in sorted(prove[name][2].items(),
-                                                reverse=True)))
-        if not lo <= count <= hi:
-            raise AssertionError(f"{name}: {count} launches on prove, "
-                                 f"allowed {lo}-{hi}")
+    check_limits("prove", launches["prove"], PROVE_LIMITS)
     norm = launches["prove_normalize_cuda"]
     log(f"  limbs.normalize on CUDA tensors during the first proof: {norm}")
     if norm:
@@ -453,7 +495,7 @@ def check_kernels(dev, results):
         log(f"  {name:13s} one lane (infinity and finite): max_abs_err 0  "
             f"kernel {ms1:.4f} ms")
 
-        for name in PROVE_SHAPES:
+        for name in (*PROVE_SHAPES, *SETUP_SHAPES):
             if name.startswith(curve.name + "_"):
                 check_widths(curve, name, *ops[name][:3], results)
 
@@ -737,31 +779,56 @@ def take_lanes(curve, args, m: int, off: int = 0):
                   for t in args), int((idx == 0).sum()))
 
 
+def vote_lanes(case: str, warp: int) -> list:
+    """Lanes of point_operands for a warp-vote case of a kernel whose warp
+    holds `warp` lanes: a warp of distinct pairs and one P + P lane, a warp
+    of infinity + infinity only (H = R = 0 on every lane, no doubling), or
+    a launch of 33 or 1,025 lanes whose P + P lane is in the ragged last
+    warp. Lanes 5.. of point_operands are distinct pairs."""
+    if case == "one_p_plus_p":
+        k = warp // 2 + 1
+        return list(range(5, 5 + k)) + [0] + list(range(5 + k, 4 + warp))
+    if case == "inf_plus_inf":
+        return [4] * warp
+    return list(range(5, 4 + int(case.split("_")[1]))) + [0]
+
+
+def widths_of(name: str) -> list:
+    """[(lanes, what)]: the widths beyond 2^16 at which phase 2 holds and
+    times a point kernel of PROVE_SHAPES or SETUP_SHAPES."""
+    if name in SETUP_SHAPES:
+        return ([(m, "setup") for m in SETUP_SHAPES[name]]
+                + [(MSM_MADD_LANES, "msm")])
+    return ([(m, "prove") for m in PROVE_SHAPES[name]]
+            + ([(WAVE_LANES, "one wave")] if name.startswith("g1_") else []))
+
+
 def check_widths(curve, name, fn, plain, args, results):
-    """Phase 2, a point kernel of PROVE_SHAPES beyond 2^16 lanes: bit for
-    bit against its plain version at the prove path's widths (and, over
-    G1, at WAVE_LANES), on ragged launches (RAGGED, at two offsets) and on
-    one lane (six lanes, the special ones included); timed at those widths,
-    beside the bound there, and on one lane. Operands are lanes of `args`
-    (2^16 lanes, lane 0 the only P == Q lane of the add), repeated past
-    2^16."""
+    """Phase 2, a point kernel of PROVE_SHAPES or SETUP_SHAPES beyond 2^16
+    lanes: bit for bit against its plain version at widths_of(name), on
+    ragged launches (RAGGED, at two offsets), on one lane (six lanes, the
+    special ones included) and, for the mixed adds of SETUP_SHAPES, on the
+    warp-vote cases (VOTE_CASES at the kernel's warp); timed at those
+    widths, beside the bound there, and on one lane. Operands are lanes of
+    `args` (2^16 lanes, lane 0 the only P == Q lane of the add), repeated
+    past 2^16."""
+    import torch
     n = curve.leaves(args[0])[0].shape[0]
     take = lambda m, off=0: take_lanes(curve, args, m, off)
+    doubles = name.endswith(("_add", "_madd"))    # has a doubling path
 
     def same(sub):
         return max_abs_err(curve.leaves(fn(curve, *sub)),
                            curve.leaves(plain(curve, *sub)))
 
     shapes = {}
-    widths = PROVE_SHAPES[name] + ((WAVE_LANES,) if curve.name == "g1"
-                                   else ())
-    for m in widths:
+    for m, what in widths_of(name):
         sub, n_dbl = take(m)
         err = same(sub)
         ms = cuda_ms(lambda: fn(curve, *sub), 20)
-        bnd = lane_bound(name, m, n_dbl if name.endswith("_add") else 0)
-        shapes[str(m)] = {"max_abs_err": err, "ms": ms, "bound_ms": bnd[0]}
-        what = "prove" if m in PROVE_SHAPES[name] else "one wave"
+        bnd = lane_bound(name, m, n_dbl if doubles else 0)
+        shapes[str(m)] = {"max_abs_err": err, "ms": ms, "bound_ms": bnd[0],
+                          "bound_by": bnd[1]}
         log(f"  {name:13s} {m} lanes ({what}): max_abs_err {err}  kernel "
             f"{ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
         if err:
@@ -770,14 +837,24 @@ def check_widths(curve, name, fn, plain, args, results):
     bad = [(m, off) for m in RAGGED for off in (0, n - 7)
            if same(take(m, off)[0])]
     bad += [(1, off) for off in range(6) if same(take(1, off)[0])]
+    if name in SETUP_SHAPES:
+        dev = curve.leaves(args[0])[0].device
+        for case in VOTE_CASES:
+            idx = torch.tensor(vote_lanes(case, WARP_LANES[curve.name]),
+                               device=dev)
+            if same(tuple(curve.map(lambda a: a.index_select(0, idx), t)
+                          for t in args)):
+                bad.append(case)
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version at (lanes, offset) {bad}")
+                             f"version at (lanes, offset) or case {bad}")
     one, _ = take(1, 5)
     ms1 = cuda_ms(lambda: fn(curve, *one), 264)
     results[name].update(shapes=shapes, one_lane_ms=ms1)
-    log(f"  {name:13s} ragged {RAGGED} lanes and one lane (lanes 0-5): "
-        f"max_abs_err 0; one lane {ms1:.4f} ms")
+    votes = (f", vote cases {VOTE_CASES} at {WARP_LANES[curve.name]} lanes "
+             "a warp" if name in SETUP_SHAPES else "")
+    log(f"  {name:13s} ragged {RAGGED} lanes and one lane (lanes 0-5)"
+        f"{votes}: max_abs_err 0; one lane {ms1:.4f} ms")
 
 
 def check_alu(dev, results):
@@ -832,7 +909,9 @@ def same_key(a, b) -> list:
 
 
 def setup_phase(dev, launches):
-    """Phase 3: the (2, 6) key on the card against setup_host's."""
+    """Phase 3: the (2, 6) key on the card against setup_host's, the setup
+    path's launches against SETUP_SHAPES and SETUP_LIMITS, its peak device
+    memory, then the setup in parts (setup_parts)."""
     import numpy as np
     import torch
     from zkrollup_torch import kernels
@@ -847,10 +926,14 @@ def setup_phase(dev, launches):
     log(f"  synthesis {time.time() - t0:.3f} s: {r1cs.n_vars} vars, "
         f"{r1cs.n_constraints} constraints, {r1cs.n_public} public")
     kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
     t0 = time.time()
     pk = prover.ensure_keys()
     torch.cuda.synchronize()
     card_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
     count_path(launches, "setup")
     t0 = time.time()
     host = setup_host(r1cs, seed=SETUP_SEED)
@@ -862,12 +945,84 @@ def setup_phase(dev, launches):
     log(f"  setup on {dev}: {card_s:.3f} s; setup_host (native engine): "
         f"{host_s:.3f} s; of either, the host's scalar derivation (Lagrange "
         f"evaluation at tau, timed apart): {scalars_s:.3f} s; domain "
-        f"{pk.domain_size}; {n_inf} infinity rows in a_g1")
+        f"{pk.domain_size}; {n_inf} infinity rows in a_g1; peak device "
+        f"memory of the setup {peak / 2**30:.3f} GiB above the "
+        f"{base_mem / 2**30:.3f} GiB held before it")
     bad = same_key(pk, host)
     if bad:
         raise AssertionError(f"card-made key differs from setup_host's: {bad}")
     log("  the two keys are equal byte for byte (tables, points, vk)")
+    setup = launches["setup"]
+    log("  launches on the setup path: " + ", ".join(
+        f"{k} {v[0]} ({v[1]} lanes)" for k, v in setup.items() if v[0]))
+    check_widest("setup", setup, SETUP_SHAPES)
+    check_limits("setup", setup, SETUP_LIMITS)
+    setup_parts(dev, r1cs, pk)
     return prover
+
+
+def setup_parts(dev, r1cs, pk):
+    """Phase 3: the setup on the card in parts, calling the functions of
+    groth16/setup.py and msm/fixed_base.py one by one as setup does, on the
+    host clock after a synchronize: the scalar derivation, the window
+    tables' host build on a cold cache and their copy to the card, the
+    scalars' ints_to_limbs and copy, the G1 fixed-base loop and its
+    normalisation, the same for G2, the copies to the host and _key's host
+    point multiplications (and, apart, the R1CS hash inside _key). The key
+    so made must equal `pk`."""
+    import torch
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.groth16.keys import r1cs_digest
+    from zkrollup_torch.groth16.setup import _key, _toxic_scalars
+    from zkrollup_torch.msm import fixed_base as fb
+    from zkrollup_torch.ref.bn254 import R as FR_MOD
+
+    parts = {}
+
+    def part(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[label] = time.time() - t0
+        return out
+
+    for cached in (fb._g1_table_host, fb._g2_table_host, fb._g1_table,
+                   fb._g2_table):
+        cached.cache_clear()
+    sc = part("scalar derivation", lambda: _toxic_scalars(r1cs, SETUP_SEED))
+    part("window tables, host build", lambda: (fb._g1_table_host(),
+                                                fb._g2_table_host()))
+    part("window tables, to the card", lambda: (fb._g1_table(str(dev)),
+                                                 fb._g2_table(str(dev))))
+    limbs = part("scalars, ints_to_limbs", lambda: [
+        L.ints_to_limbs([x % FR_MOD for x in sc[k]])
+        for k in ("all_g1", "b_t")])
+    s1, s2 = part("scalars, to the card",
+                  lambda: [L.to_device(a, dev) for a in limbs])
+    jac1 = part("G1 fixed-base loop", lambda: fb.fixed_base_g1(s1))
+    aff1 = part("G1 normalisation", lambda: fb.g1_normalize_packed(jac1))
+    jac2 = part("G2 fixed-base loop", lambda: fb.fixed_base_g2(s2))
+    aff2 = part("G2 normalisation", lambda: fb.g2_normalize_packed(jac2))
+
+    def to_host():
+        (x, y, inf), ((x0, x1), (y0, y1), inf2) = aff1, aff2
+        return ((fb._host(x), fb._host(y), inf.cpu().numpy()),
+                ((fb._host(x0), fb._host(x1)), (fb._host(y0), fb._host(y1)),
+                 inf2.cpu().numpy()))
+
+    g1_packed, b2 = part("copies to the host", to_host)
+    key = part("_key (host point multiplications)",
+               lambda: _key(r1cs, sc, g1_packed, b2))
+    log(f"  setup in parts ({sum(parts.values()):.3f} s): " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in parts.items()))
+    t0 = time.time()
+    r1cs_digest(r1cs)
+    log(f"  of _key, r1cs_digest (the key's hash of the R1CS): "
+        f"{time.time() - t0:.4f} s")
+    bad = same_key(key, pk)
+    if bad:
+        raise AssertionError(f"the key made in parts differs: {bad}")
 
 
 def proof_bytes(proof) -> bytes:
@@ -1348,16 +1503,16 @@ def curve_path(dev, launches):
 
 
 def ab_run(dev, bases: list, keep) -> list:
-    """--ab: the point kernels of PROVE_SHAPES of this checkout against
-    those built from each csrc/ directory of `bases`. Every unit they live
+    """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES of this
+    checkout against those built from each csrc/ directory of `bases`. Every unit they live
     in (kernels.UNITS) is built from each base, one nvcc each, all started
     together with this checkout's flags into a temporary directory, and
     bound through the same wrappers (the C signatures do not change);
     `keep()`, called while they build, gives one proof's operands
     (keep_prove_operands). For each kernel, at 2^16 lanes with phase 2's
-    special lanes, at PROVE_SHAPES, over G1 at WAVE_LANES and on the
-    proof's operands of g1_add's two widest launches and of one g1_madd_nd
-    launch, and on one lane: every build bit for bit against the plain
+    special lanes, at widths_of (PROVE_SHAPES and, over G1, WAVE_LANES;
+    SETUP_SHAPES and MSM_MADD_LANES), on the proof's operands of g1_add's
+    two widest launches and of one g1_madd_nd launch, and on one lane: every build bit for bit against the plain
     version, then timed in turns, base, this, this, base (cuda_ms, 20
     calls, 264 on one lane). The fields unit is built from each base too,
     for ab_fields; a fields.cu with the earlier C interface is bound as a
@@ -1369,7 +1524,8 @@ def ab_run(dev, bases: list, keep) -> list:
 
     libs = kernels.load()
     curves = {"g1": G1, "g2": G2}
-    units = sorted({kernels._SIGS[k][0] for k in PROVE_SHAPES}
+    units = sorted({kernels._SIGS[k][0] for k in (*PROVE_SHAPES,
+                                                   *SETUP_SHAPES)}
                    | {"fields"})
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
@@ -1412,12 +1568,12 @@ def ab_run(dev, bases: list, keep) -> list:
                for g in units if g in curves}
         proof_ops = {"g1_add": widest(adds), "g1_madd_nd": [madd]}
         cases = []     # (kernel, lanes, operands, curve, fn, plain, sub)
-        for name in PROVE_SHAPES:
+        for name in (*PROVE_SHAPES, *SETUP_SHAPES):
             g = name.split("_")[0]
             curve = curves[g]
             fn, plain, args, _ = ops[g][name]
-            widths = ((1 << 16,) + PROVE_SHAPES[name]
-                      + ((WAVE_LANES,) if g == "g1" else ()) + (1,))
+            widths = ((1 << 16,) + tuple(m for m, _ in widths_of(name))
+                      + (1,))
             for m in widths:
                 sub, _ = take_lanes(curve, args, m, 5 if m == 1 else 0)
                 cases.append((name, m, "phase 2", curve, fn, plain, sub))
@@ -1750,7 +1906,7 @@ def main() -> int:
             count, lanes, _ = launches[p][k]
             cells.append(f"{count:7d} x {lanes / max(1, count):9.1f}")
         log(f"  {k:14s} " + " ".join(cells))
-    check_prove_widths(launches["prove"])
+    check_widest("prove", launches["prove"], PROVE_SHAPES)
     check_prove_limits(launches)
     missing = [(p, k) for p, ks in PATHS.items() for k in ks
                if launches[p][k][0] <= 0]

@@ -267,9 +267,34 @@ def test_point_kernels_match_plain(cuda_device, name):
             assert all(torch.equal(a, b) for a, b in zip(got, want)), m
 
 
+VOTE_CASES = ["one_p_plus_p", "inf_plus_inf", "ragged_33", "ragged_1025"]
+# lanes a warp holds: one thread a G1 lane, two a G2 lane (thread pairs)
+WARP_LANES = {"g1": 32, "g2": 16}
+
+
+def _vote_lanes(case: str, warp: int) -> list:
+    """Lanes of _point_operands for a warp-vote case: a warp of distinct
+    pairs and one P + P lane, a warp of infinity + infinity only (H = R = 0
+    on every lane, no doubling), or a launch of 33 or 1,025 lanes whose
+    P + P lane is in the ragged last warp."""
+    distinct = list(range(5, N))            # lanes 5.. are distinct pairs
+    if case == "one_p_plus_p":
+        k = warp // 2 + 1
+        return distinct[:k] + [0] + distinct[k:warp - 1]
+    if case == "inf_plus_inf":
+        return [4] * warp
+    m = int(case.split("_")[1])
+    return [distinct[k % len(distinct)] for k in range(m - 1)] + [0]
+
+
+def _check_on_lanes(curve, fn, plain, p, q, idx):
+    sub = [curve.map(lambda a: a.index_select(0, idx), t) for t in (p, q)]
+    got, want = (curve.leaves(f(curve, *sub)) for f in (fn, plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["one_p_plus_p", "inf_plus_inf",
-                                  "ragged_33", "ragged_1025"])
+@pytest.mark.parametrize("case", VOTE_CASES)
 def test_g1_add_vote_matches_plain(cuda_device, case):
     """g1_add runs the doubling path only in warps with a P == Q lane of
     finite points: a warp of 31 distinct pairs and one P + P lane, a warp
@@ -277,17 +302,38 @@ def test_g1_add_vote_matches_plain(cuda_device, case):
     launches of 33 and 1,025 lanes whose P + P lane is in the ragged last
     warp; bit for bit against the plain version."""
     curve, p, q = _point_operands("g1", cuda_device)
-    distinct = list(range(5, N))            # lanes 5.. are distinct pairs
-    lanes = {"one_p_plus_p": distinct[:17] + [0] + distinct[17:31],
-             "inf_plus_inf": [4] * 32}.get(case)
-    if lanes is None:
-        m = int(case.split("_")[1])
-        lanes = [distinct[k % len(distinct)] for k in range(m - 1)] + [0]
-    idx = torch.tensor(lanes, device=cuda_device)
-    sub = [curve.map(lambda a: a.index_select(0, idx), t) for t in (p, q)]
-    got, want = (curve.leaves(f(curve, *sub))
-                 for f in (cuda_curve.add, cuda_curve.add_plain))
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    idx = torch.tensor(_vote_lanes(case, 32), device=cuda_device)
+    _check_on_lanes(curve, cuda_curve.add, cuda_curve.add_plain, p, q, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VOTE_CASES)
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_madd_vote_matches_plain(cuda_device, name, case):
+    """g1_madd and g2_madd (on thread pairs, 16 lanes a warp) run the
+    doubling path only in warps with a P == Q lane of finite points: the
+    cases of test_g1_add_vote_matches_plain at each kernel's warp; bit for
+    bit against the plain version."""
+    curve, p, q = _point_operands(name, cuda_device)
+    idx = torch.tensor(_vote_lanes(case, WARP_LANES[name]),
+                       device=cuda_device)
+    _check_on_lanes(curve, cuda_curve.madd, cuda_curve.madd_plain, p, q, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,m", [("g1", 482_413), ("g2", 117_114),
+                                    ("g1", 22_528), ("g2", 22_528)])
+def test_madd_wide_matches_plain(cuda_device, name, m):
+    """g1_madd and g2_madd at the (2,6) setup's lanes a launch (its G1 and
+    G2 tables, one chunk each) and at the msm paths' 22,528: the point
+    operands repeated (P + P lanes in many warps), then lanes 1.. of them
+    (no lane on the doubling path, as in the setup); bit for bit against
+    the plain version."""
+    curve, p, q = _point_operands(name, cuda_device)
+    idx = torch.arange(m, device=cuda_device)
+    for lanes in (idx % N, idx % (N - 1) + 1):
+        _check_on_lanes(curve, cuda_curve.madd, cuda_curve.madd_plain, p, q,
+                        lanes)
 
 
 @pytest.mark.cuda

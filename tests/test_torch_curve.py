@@ -6,7 +6,8 @@ in interpret mode; every result also against zkrollup.ref affine
 arithmetic. The plain versions of the double and the safe mixed add are
 held against zkrollup.ref for G1 and G2, limb for limb. The rule g1_add's
 warp vote relies on (the doubling path is needed only on P == Q lanes of
-finite points) is held against add_plain and the reference.
+finite points) is held against add_plain and the reference, and so is
+the same rule for g1_madd's vote against madd_plain.
 
 Exactness: Jacobian limbs are equal wherever the result is a finite point,
 and Z is equal everywhere. On P + (-P) the Pallas kernels (and the port)
@@ -29,6 +30,7 @@ from zkrollup.ref import bn254 as ref
 from zkrollup_torch.curve import cuda_curve, g1, g2
 from zkrollup_torch.fields import fq2
 from zkrollup_torch.fields.mont import FQ
+from zkrollup_torch.ref import bn254 as tref
 
 # One intra-op thread per process: the suite runs in several worker
 # processes, whose torch thread pools would otherwise fight for the cores.
@@ -145,6 +147,15 @@ def _vote_operands(seed):
     return p, q, pa, qa
 
 
+def _voted(need, warp: int):
+    """(n, 1) bools: every lane of each group of `warp` lanes where `need`
+    (an (n, 1) mask) holds on some lane, as a warp vote gives it."""
+    need = need[:, 0]
+    n = need.shape[0]
+    voted = torch.nn.functional.pad(need, (0, -n % warp)).view(-1, warp)
+    return voted.any(dim=1).repeat_interleave(warp)[:n, None]
+
+
 def _add_voted(curve, p, q, warp: int):
     """The unified add as csrc/curve.cuh:jac_add_lane runs it over FqCall
     (g1_add): the doubling path computed only in groups of `warp` lanes
@@ -154,10 +165,7 @@ def _add_voted(curve, p, q, warp: int):
     out, H, R = cuda_curve._add_path(F, p, q)
     h_zero, r_zero = F.is_zero(H), F.is_zero(R)
     p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
-    need = (h_zero & r_zero & ~p_inf & ~q_inf)[:, 0]
-    n = need.shape[0]
-    voted = torch.nn.functional.pad(need, (0, -n % warp)).view(-1, warp)
-    voted = voted.any(dim=1).repeat_interleave(warp)[:n, None]
+    voted = _voted(h_zero & r_zero & ~p_inf & ~q_inf, warp)
     out = curve.select(h_zero & r_zero & voted,
                        cuda_curve.double_plain(curve, p), out)
     return cuda_curve._inf_selects(curve, out, h_zero & ~r_zero & ~p_inf
@@ -188,6 +196,77 @@ def test_add_doubles_only_where_needed(warp):
     _assert_matches(got, want)
     _assert_matches(plain, want)
     assert g1.to_affine_host(got) == _sums(pa, qa)
+
+
+def _madd_vote_operands(seed):
+    """(p, q, affine p, affine q) over N lanes for the mixed add, q with Z
+    in {0, 1}: the special lanes of _operands (0 P + P, 1 P + (-P), 2 inf +
+    Q, 3 P + inf, 4 inf + inf, p with Z != 1), then 5 J + Q with J a
+    Jacobian infinity with X, Y != 0 (the Z-only zeroing of a P + (-P)
+    result), 6 P + P on the same limbs (Z = 1 both), 7 P + (x, y, 0) (q
+    infinite by its Z alone), 8 J + (x, y, 0); the rest distinct pairs."""
+    p, q, pa, qa = _operands(seed, nonunit_z=True)
+    jinf = g1.G1.add(p, g1.G1.neg(p))
+    assert jinf[2][5].eq(0).all() and jinf[0][5].ne(0).any()
+    for k in (5, 8):
+        for d, s in zip(p, jinf):
+            d[k] = s[5]
+    for d, s in zip(p, q):
+        d[6] = s[6]
+    q[2][7:9] = 0
+    pa[5], pa[6], qa[7], pa[8], qa[8] = None, qa[6], None, None, None
+    return p, q, pa, qa
+
+
+def _madd_voted(curve, p, q, warp: int):
+    """The mixed add as csrc/curve.cuh:jac_madd_lane runs it (g1_madd over
+    FqCall, g2_madd over Fq2Pair): the affine double of q computed only in
+    groups of `warp` lanes where some lane has H = R = 0 with neither
+    operand infinite, and there selected where H = R = 0, before the
+    infinity selects."""
+    F = curve.F
+    out, H, R = cuda_curve.madd_add_path(F, p, q)
+    h_zero, r_zero = F.is_zero(H), F.is_zero(R)
+    p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
+    voted = _voted(h_zero & r_zero & ~p_inf & ~q_inf, warp)
+    dX, dY = cuda_curve._dbl_xy(F, q[0], q[1])
+    out = curve.select(h_zero & r_zero & voted, (dX, dY, F.add(q[1], q[1])),
+                       out)
+    return cuda_curve._inf_selects(curve, out, h_zero & ~r_zero & ~p_inf
+                                   & ~q_inf, p, q)
+
+
+@functools.lru_cache(maxsize=None)
+def _madd_vote_case():
+    """_madd_vote_operands(53) and the reference's plain JAX mixed add of
+    them, made once for the cases of test_madd_doubles_only_where_needed."""
+    p, q, pa, qa = _madd_vote_operands(53)
+    madd = jax.jit(lambda a, b: g1_jax.G1.madd_z01(a, b, distinct=False))
+    return p, q, pa, qa, madd(_jax(p), _jax(q))
+
+
+@pytest.mark.parametrize("warp", [1, 5, 32])
+def test_madd_doubles_only_where_needed(warp):
+    """g1_madd's warp vote: with the affine double selected only in groups
+    of `warp` lanes that hold a P == Q lane of finite points (warp 1: only
+    on those lanes; 5: a ragged last group; 32: every lane in one warp),
+    the mixed add equals madd_plain limb for limb on every lane,
+    infinities with X, Y != 0 and infinity + infinity (H = R = 0 too)
+    included; both equal the reference's plain JAX mixed add (Z
+    everywhere, X and Y on finite lanes) on every lane but P + P, where
+    that formula doubles p (other limbs, the same point), and
+    zkrollup_torch.ref on every lane."""
+    p, q, pa, qa, want = _madd_vote_case()
+    got = _madd_voted(g1.G1, p, q, warp)
+    plain = cuda_curve.madd_plain(g1.G1, p, q)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    keep = [k for k in range(N) if k not in (0, 6)]      # not P + P
+    for t in (got, plain):
+        _assert_matches([c[keep] for c in t],
+                        [np.asarray(c)[keep] for c in want])
+    sums = [tref.g1_add(a, b) for a, b in zip(pa, qa)]
+    assert sums[0] == tref.g1_add(qa[0], qa[0]) and sums[6] is not None
+    assert g1.to_affine_host(got) == sums
 
 
 def test_add_nd_matches_generic_and_ref():

@@ -1,7 +1,10 @@
 """zkrollup_torch G2 point ops (Jacobian over Fq2) against zkrollup.curve
 (JAX): the unified add, the add without the doubling path, the add of Z in
 {0, 1} operands and the no-double mixed add against the generic
-weierstrass G2 formulas and zkrollup.ref affine arithmetic.
+weierstrass G2 formulas and zkrollup.ref affine arithmetic; the rule
+g2_madd's warp vote relies on (the doubling path is needed only on P == Q
+lanes of finite points) against madd_plain, the generic formula and
+zkrollup_torch.ref.
 
 Exactness as for G1 (test_torch_curve.py): Jacobian limbs equal on finite
 lanes, Z equal everywhere. The G2 add_z01 kernel has no Pallas
@@ -9,7 +12,10 @@ counterpart: the reference computes it with the generic formula, which
 gives (0, 0, 0) on P + (-P) where the kernel zeroes Z only.
 """
 
+import functools
+
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -17,7 +23,8 @@ import jax.numpy as jnp
 
 from zkrollup.curve import g2_jax
 from zkrollup.ref import bn254 as ref
-from zkrollup_torch.curve import g2
+from zkrollup_torch.curve import cuda_curve, g2
+from zkrollup_torch.ref import bn254 as tref
 
 # One intra-op thread per process: the suite runs in several worker
 # processes, whose torch thread pools would otherwise fight for the cores.
@@ -120,3 +127,91 @@ def test_add_z01_matches_generic_and_ref():
     _assert_matches(got, want)
     assert g2.to_affine_host(got) == [ref.g2_add(a, b)
                                       for a, b in zip(pa, qa)]
+
+
+# lanes of the vote cases: more than one 16-lane warp of thread pairs
+N_VOTE = 20
+
+
+def _madd_vote_operands(seed):
+    """(p, q, affine p, affine q) over N_VOTE lanes, q with Z in {0, 1} and
+    p with Z != 1: 0 P + P, 1 P + (-P), 2 inf + Q, 3 P + inf, 4 inf + inf,
+    5 J + Q with J a Jacobian infinity with X, Y != 0 (the Z-only zeroing
+    of a P + (-P) result), 6 P + P on the same limbs (Z = 1 both), 7 P +
+    (x, y, 0) (q infinite by its Z alone), 17 P + P in the second warp;
+    the rest distinct pairs."""
+    rng = np.random.RandomState(seed)
+    pt = lambda: ref.g2_mul(ref.G2_GEN, int(rng.randint(1, 1 << 62)))
+    pa, qa, ra = ([pt() for _ in range(N_VOTE)] for _ in range(3))
+    qa[0], qa[17] = pa[0], pa[17]
+    qa[1] = ref.g2_neg(pa[1])
+    pa[2], qa[3], pa[4], qa[4] = None, None, None, None
+    G2 = g2.G2
+    p = G2.add(G2.add(g2.pack_jacobian_host(pa),
+                      g2.pack_jacobian_host([ref.g2_neg(r) for r in ra])),
+               g2.pack_jacobian_host(ra))
+    q = g2.pack_jacobian_host(qa)
+    jinf = G2.add(p, G2.neg(p))
+    assert G2.is_infinity(jinf)[5] and jinf[0][0][5].ne(0).any()
+    for d, s in zip(G2.leaves(p), G2.leaves(jinf)):
+        d[5] = s[5]
+    for d, s in zip(G2.leaves(p), G2.leaves(q)):
+        d[6] = s[6]
+    for c in q[2]:
+        c[7] = 0
+    pa[5], pa[6], qa[7] = None, qa[6], None
+    return p, q, pa, qa
+
+
+def _madd_voted(p, q, warp: int):
+    """G2's mixed add as csrc/curve.cuh:jac_madd_lane runs it over Fq2Pair
+    (g2_madd): the affine double of q computed only in groups of `warp`
+    lanes where some lane has H = R = 0 with neither operand infinite."""
+    G2 = g2.G2
+    F = G2.F
+    out, H, R = cuda_curve.madd_add_path(F, p, q)
+    h_zero, r_zero = F.is_zero(H), F.is_zero(R)
+    p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
+    need = (h_zero & r_zero & ~p_inf & ~q_inf)[:, 0]
+    n = need.shape[0]
+    voted = torch.nn.functional.pad(need, (0, -n % warp)).view(-1, warp)
+    voted = voted.any(dim=1).repeat_interleave(warp)[:n, None]
+    dX, dY = cuda_curve._dbl_xy(F, q[0], q[1])
+    out = G2.select(h_zero & r_zero & voted, (dX, dY, F.add(q[1], q[1])),
+                    out)
+    return cuda_curve._inf_selects(G2, out, h_zero & ~r_zero & ~p_inf
+                                   & ~q_inf, p, q)
+
+
+@functools.lru_cache(maxsize=None)
+def _madd_vote_case():
+    """_madd_vote_operands(59) and the reference's plain JAX mixed add of
+    them, made once for the cases of test_madd_doubles_only_where_needed."""
+    p, q, pa, qa = _madd_vote_operands(59)
+    madd = jax.jit(lambda a, b: g2_jax.G2.madd_z01(a, b, distinct=False))
+    return p, q, pa, qa, madd(_jax(p), _jax(q))
+
+
+@pytest.mark.parametrize("warp", [1, 5, 16])
+def test_madd_doubles_only_where_needed(warp):
+    """g2_madd's warp vote (a warp holds 16 lanes on thread pairs): with the
+    affine double selected only in groups of `warp` lanes that hold a
+    P == Q lane of finite points (warp 1: only there; 5: a ragged last
+    group; 16: a whole warp and the ragged second one), the mixed add
+    equals madd_plain limb for limb on every lane; both equal the
+    reference's plain JAX mixed add (Z everywhere, X and Y on finite
+    lanes) on every lane but P + P, where that formula doubles p, and
+    zkrollup_torch.ref on every lane."""
+    p, q, pa, qa, want = _madd_vote_case()
+    got = _madd_voted(p, q, warp)
+    plain = cuda_curve.madd_plain(g2.G2, p, q)
+    assert all(torch.equal(a, b) for a, b in
+               zip(g2.G2.leaves(got), g2.G2.leaves(plain)))
+    keep = [k for k in range(N_VOTE) if k not in (0, 6, 17)]   # not P + P
+    cut = lambda t: tuple(tuple(c[keep] for c in coord) for coord in t)
+    for t in (got, plain):
+        _assert_matches(cut(t), [[np.asarray(c)[keep] for c in coord]
+                                 for coord in want])
+    sums = [tref.g2_add(a, b) for a, b in zip(pa, qa)]
+    assert sums[0] == tref.g2_add(qa[0], qa[0]) and sums[6] is not None
+    assert g2.to_affine_host(got) == sums

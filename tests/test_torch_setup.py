@@ -6,7 +6,8 @@ zkrollup prefers the native engine for its tables whenever it is built;
 ZKROLLUP_SETUP_BACKEND=device (read at call time) makes it take its JAX
 fixed-base path instead, which is the one the port's device setup follows.
 The scalar counts equal the cubic circuit's (25 G1 and 6 G2 scalars), so
-the reference compiles each of its fixed-base programs once in this file.
+the reference compiles each of its fixed-base programs once in this file;
+the port's tables are also made in chunks that split them unevenly.
 The card runs the same code in test_torch_cuda.py and chip_smoke.py.
 """
 
@@ -63,11 +64,20 @@ def jax_device_backend(monkeypatch):
     monkeypatch.setenv("ZKROLLUP_SETUP_BACKEND", "device")
 
 
-@pytest.mark.parametrize("group", ["g1", "g2"])
-def test_points_from_scalars_match_jax(jax_device_backend, group):
+# the default chunk (one chunk a table here), then chunks that cut the
+# tables unevenly (25 = 3 x 7 + 4, 6 = 4 + 2): the loop a table larger than
+# the default chunk takes
+CHUNKS = [pytest.param("g1", None, id="g1"), pytest.param("g2", None, id="g2"),
+          pytest.param("g1", 7, id="g1-chunk7"),
+          pytest.param("g2", 4, id="g2-chunk4")]
+
+
+@pytest.mark.parametrize("group,chunk", CHUNKS)
+def test_points_from_scalars_match_jax(jax_device_backend, group, chunk):
     n = N_G1 if group == "g1" else N_G2
     sc = _scalars(n, 7 if group == "g1" else 8)
-    got = getattr(fb, f"{group}_points_from_scalars")(sc, device="cpu")
+    kw = {} if chunk is None else {"chunk": chunk}
+    got = getattr(fb, f"{group}_points_from_scalars")(sc, device="cpu", **kw)
     want = getattr(jfb, f"{group}_points_from_scalars")(sc)
     _same_bytes(got, want)
     inf = got[2][:, 0]

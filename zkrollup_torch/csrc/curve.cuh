@@ -1,6 +1,8 @@
 // Jacobian point formulas over Fq (G1) or Fq2 (G2) for the zkrollup_torch
 // CUDA kernels: one lane = one point (double) or one point pair (adds),
-// branch-free but for the warp vote of the add over FqCall (jac_add_lane).
+// branch-free but for the warp votes of the doubling path: the add's over
+// FqCall (jac_add_lane) and the mixed add's over every type
+// (jac_madd_lane).
 //
 // Replace the point kernels of zkrollup/curve/pallas_curve.py (_add_kernel,
 // _add_nd_kernel, _add_z01_kernel, _make_madd_kernel(False),
@@ -127,7 +129,8 @@ ZKT_HD void inf_selects(E& X3, E& Y3, E& Z3, bool to_inf, bool p_inf,
 
 // Whether jac_add_lane over E runs the doubling path only in warps where
 // some lane needs it (true for FqCall, fq_call.cuh: g1_add). Over every
-// other type each lane computes it, branch-free.
+// other type each lane computes it, branch-free. jac_madd_lane votes over
+// every type and does not read this.
 template <class E>
 struct VoteDoubling {
   static constexpr bool value = false;
@@ -285,8 +288,19 @@ ZKT_HD void jac_madd_nd_lane(const PointArgs& args, int64_t i,
 // add path, then where H = R = 0 (P == Q) the affine double (mdbl) of q
 // with dZ = 2 y2, then the infinity and P + (-P) masks, in the Pallas
 // kernel's order. Correct for every pair, duplicates included.
+//
+// Over every type a warp computes the doubling and its selects only if
+// one of its lanes has H = R = 0 with neither operand infinite (the rule
+// of jac_add_lane's vote); every lane's result is the same as when every
+// lane computes it. The setup's fixed-base steps never take it: there P
+// is (sum of d_w' 2^(8w'), w' < w) G and Q is d_w 2^(8w) G with both
+// multipliers below r, equal only when both are 0 (infinity + infinity).
+// Every kernel on this lane (g1.cu's g1_madd_kernel over FqCall, g2.cu's
+// jac_madd_pair_kernel over Fq2Pair) launches whole warps and clamps its
+// lane index past the ragged edge, so every thread reaches the vote.
 template <class E>
-ZKT_HD void jac_madd_lane(const PointArgs& args, int64_t i) {
+ZKT_HD void jac_madd_lane(const PointArgs& args, int64_t i,
+                          bool live = true) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
@@ -299,7 +313,7 @@ ZKT_HD void jac_madd_lane(const PointArgs& args, int64_t i) {
   const bool h_zero = H.is_zero(), r_zero = R.is_zero();
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool same = h_zero && r_zero;
-  {
+  if (any_in_warp(same && !p_inf && !q_inf)) {
     E dX, dY;
     dbl_xy(dX, dY, x2, y2);
     X3 = E::select(same, dX, X3);
@@ -308,7 +322,7 @@ ZKT_HD void jac_madd_lane(const PointArgs& args, int64_t i) {
   }
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, x2, y2, Z2);
-  store3(args, i, true, X3, Y3, Z3);
+  store3(args, i, live, X3, Y3, Z3);
 }
 
 }  // namespace zkt

@@ -1,8 +1,9 @@
 // Fq2Pair: an Fq2 value of one G2 lane spread over two adjacent threads of
 // a warp (lanes 2j and 2j+1), for the paired point kernels of points.cuh
-// (jac_add and jac_madd_nd over Fq2: g2_add and g2_madd_nd).
+// (jac_add, jac_madd_nd and jac_madd over Fq2: g2_add, g2_madd_nd and
+// g2_madd).
 //
-// Replaces, for those two kernels, the Fq2 layer of
+// Replaces, for those three kernels, the Fq2 layer of
 // zkrollup/curve/pallas_curve_g2.py (_k2_mul, _k2_sqr) that Fq2 in
 // field.cuh follows one thread a lane.
 //
@@ -42,8 +43,8 @@
 // Per thread a product is 2 x 128 multiply instructions for the two
 // products and 8 x 17 for the reduction, against 3 x 264 in one thread
 // for Fq2::mul: about the same per lane, half the chain per thread, and 8
-// registers a value instead of 16, so jac_add and jac_madd_nd over this
-// type run 12 warps an SM with no spill (g2.cu).
+// registers a value instead of 16, so the three paired kernels run 12
+// warps an SM with no spill (g2.cu).
 //
 // Device only: the two halves of a value live in two threads. Every
 // thread of a warp must reach every shuffle, so a kernel on this type

@@ -1,7 +1,8 @@
 // FqCall: Fq with its product as a called function, not inlined, for the
-// two G1 point kernels on the prove path (g1_add and g1_madd_nd, g1.cu).
+// G1 point kernels of the prove path (g1_add and g1_madd_nd) and of the
+// setup's fixed-base steps (g1_madd), g1.cu.
 //
-// Replaces, for those two kernels, the in-kernel field library of
+// Replaces, for those three kernels, the in-kernel field library of
 // zkrollup/curve/pallas_curve.py (_k_mont_mul, _k_sqr) that Fq in
 // field.cuh follows inlined.
 //
@@ -16,8 +17,10 @@
 //
 // Values, storage and results are Fq's: mul runs Fp::mul's body, and
 // every other operation forwards to Fq, so the two types agree bit for
-// bit. Only g1.cu's g1_add and g1_madd_nd are instantiated over it; every
-// other kernel keeps Fq.
+// bit. Only g1.cu's g1_add, g1_madd_nd and g1_madd are instantiated over
+// it (g1_madd since it moved off Fq: 3.1x at the setup's 482,413 lanes,
+// chip_smoke.py --ab, with the doubling path voted per warp); every other
+// kernel keeps Fq.
 #pragma once
 
 #include <cstdint>
@@ -69,7 +72,8 @@ struct Planes<FqCall> {
 };
 
 // g1_add over this type runs the doubling path only in warps where some
-// lane needs it (jac_add_lane).
+// lane needs it (jac_add_lane); the mixed add votes over every type
+// (jac_madd_lane).
 template <>
 struct VoteDoubling<FqCall> {
   static constexpr bool value = true;

@@ -1,31 +1,37 @@
-// The G1 point kernels: g1_add and g1_madd_nd over FqCall (fq_call.cuh,
-// the product called rather than inlined; g1_add_kernel,
-// g1_madd_nd_kernel), the other four over Fq (g1_add_nd, g1_add_z01,
-// g1_madd, g1_double: the templates of points.cuh). Built by its own nvcc,
-// beside g2.cu, fields.cu and alu.cu.
+// The G1 point kernels: g1_add, g1_madd_nd and g1_madd over FqCall
+// (fq_call.cuh, the product called rather than inlined; g1_add_kernel,
+// g1_madd_nd_kernel, g1_madd_kernel), the other three over Fq (g1_add_nd,
+// g1_add_z01, g1_double: the templates of points.cuh). Built by its own
+// nvcc, beside g2.cu, fields.cu and alu.cu.
 //
 // g1_add and g1_madd_nd carry the G1 MSM of a proof: g1_madd_nd runs 127
 // launches of 74,492 lanes (the scan leg, 22 windows x 3,386 chunks),
 // g1_add 38 launches of 360,448 lanes and fewer. g1_add runs the doubling
 // path only in warps where a lane needs it (jac_add_lane's vote); on the
 // (2,6) proof's own operands no lane of its 38 launches does
-// (chip_smoke.py phase 4).
+// (chip_smoke.py phase 4). g1_madd carries the setup's fixed-base steps:
+// 32 launches of the (2,6) key's 482,413 lanes (msm/fixed_base.py), where
+// no lane needs its doubling path either (curve.cuh:jac_madd_lane), and
+// the MSM's scan leg on the msm paths (distinct=False).
 //
 // Launch bounds from ptxas -v for sm_90a (chip_smoke.py phase 1 fails if
-// either kernel spills or needs more registers than its bound leaves):
-// over FqCall g1_add takes 149 registers (12 warps an SM) and g1_madd_nd
-// 124 (16), no spill. Fewer registers cost more than the occupancy they
-// buy: at (128, 4) g1_add spills 48 bytes and at (128, 5), the bound that
-// would hold 74,492 lanes in one wave of 20 warps, g1_madd_nd spills 192,
-// and each ran slower at the proof's widths than at these bounds.
+// a kernel spills or needs more registers than its bound leaves): over
+// FqCall g1_add takes 149 registers (12 warps an SM), g1_madd_nd 124 (16)
+// and g1_madd 139 (12), no spill. Fewer registers cost more than the
+// occupancy they buy: at (128, 4) g1_add spills 48 bytes and g1_madd 24,
+// and at (128, 5), the bound that would hold 74,492 lanes in one wave of
+// 20 warps, g1_madd_nd spills 192; each ran slower than at these bounds
+// (g1_madd 4% at 482,413 lanes, chip_smoke.py --ab).
 #include "points.cuh"
 
 namespace zkt {
 constexpr int G1_ADD_MIN_BLOCKS = 3;
 constexpr int G1_MADD_ND_MIN_BLOCKS = 4;
+constexpr int G1_MADD_MIN_BLOCKS = 3;
 ZKT_LANE_KERNEL(g1_add_kernel, jac_add_lane, FqCall, G1_ADD_MIN_BLOCKS)
 ZKT_LANE_KERNEL(g1_madd_nd_kernel, jac_madd_nd_lane, FqCall,
                 G1_MADD_ND_MIN_BLOCKS)
+ZKT_LANE_KERNEL(g1_madd_kernel, jac_madd_lane, FqCall, G1_MADD_MIN_BLOCKS)
 }  // namespace zkt
 
 ZKT_POINT_API(g1, add, zkt::launch_point<zkt::FqCall>, zkt::g1_add_kernel, 2)
@@ -35,7 +41,7 @@ ZKT_POINT_API(g1, add_nd, zkt::launch_point<zkt::Fq>,
               zkt::jac_add_nd_kernel<zkt::Fq>, 2)
 ZKT_POINT_API(g1, add_z01, zkt::launch_point<zkt::Fq>,
               zkt::jac_add_z01_kernel<zkt::Fq>, 2)
-ZKT_POINT_API(g1, madd, zkt::launch_point<zkt::Fq>,
-              zkt::jac_madd_kernel<zkt::Fq>, 2)
+ZKT_POINT_API(g1, madd, zkt::launch_point<zkt::FqCall>, zkt::g1_madd_kernel,
+              2)
 ZKT_POINT_API(g1, double, zkt::launch_point<zkt::Fq>,
               zkt::jac_double_kernel<zkt::Fq>, 1)

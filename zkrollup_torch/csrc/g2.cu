@@ -1,23 +1,26 @@
-// The G2 point kernels (over Fq2): g2_add and g2_madd_nd on the paired
-// Fq2 type, two threads a lane (jac_add_pair_kernel,
-// jac_madd_nd_pair_kernel); g2_add_nd, g2_add_z01, g2_madd and g2_double
-// over Fq2, one thread a lane. Built by its own nvcc, beside g1.cu,
-// fields.cu and alu.cu.
+// The G2 point kernels (over Fq2): g2_add, g2_madd_nd and g2_madd on the
+// paired Fq2 type, two threads a lane (jac_add_pair_kernel,
+// jac_madd_nd_pair_kernel, jac_madd_pair_kernel); g2_add_nd, g2_add_z01
+// and g2_double over Fq2, one thread a lane. Built by its own nvcc,
+// beside g1.cu, fields.cu and alu.cu.
 //
 // The paired kernels' launch bounds (PAIR_THREADS, PAIR_MIN_BLOCKS in
 // points.cuh) are set from ptxas -v for sm_90a (chip_smoke.py phase 1): no
 // spill, and more resident warps an SM than the one-thread kernels' 8.
 // Each of the SM's four sub-partitions holds 16K registers, so the cap
 // falls in steps: 255 registers a thread for 8 warps, 168 for 12, 128 for
-// 16. At (128, 3), 12 warps, jac_add_pair_kernel takes 168 registers and
-// jac_madd_nd_pair_kernel 150, with no spill and no stack frame (the one-
-// thread jac_add<Fq2> took 255 and spilled 172 bytes, jac_madd_nd<Fq2> 255
-// and 16). chip_smoke.py phase 1 fails if either spills.
+// 16. At (128, 3), 12 warps, jac_add_pair_kernel and jac_madd_pair_kernel
+// take 168 registers and jac_madd_nd_pair_kernel 150, with no spill and no
+// stack frame; at (128, 4) all three spill (120, 80 and 24 bytes). The
+// one-thread jac_add<Fq2> took 255 and spilled 172 bytes, jac_madd_nd<Fq2>
+// 255 and 16, jac_madd<Fq2> 255 and 20. chip_smoke.py phase 1 fails if a
+// paired kernel spills.
 #include "points.cuh"
 
 namespace zkt {
 ZKT_PAIR_KERNEL(jac_add_pair_kernel, jac_add_lane)
 ZKT_PAIR_KERNEL(jac_madd_nd_pair_kernel, jac_madd_nd_lane)
+ZKT_PAIR_KERNEL(jac_madd_pair_kernel, jac_madd_lane)
 }  // namespace zkt
 
 ZKT_POINT_API(g2, add, zkt::launch_pair, zkt::jac_add_pair_kernel, 2)
@@ -26,7 +29,6 @@ ZKT_POINT_API(g2, add_nd, zkt::launch_point<zkt::Fq2>,
               zkt::jac_add_nd_kernel<zkt::Fq2>, 2)
 ZKT_POINT_API(g2, add_z01, zkt::launch_point<zkt::Fq2>,
               zkt::jac_add_z01_kernel<zkt::Fq2>, 2)
-ZKT_POINT_API(g2, madd, zkt::launch_point<zkt::Fq2>,
-              zkt::jac_madd_kernel<zkt::Fq2>, 2)
+ZKT_POINT_API(g2, madd, zkt::launch_pair, zkt::jac_madd_pair_kernel, 2)
 ZKT_POINT_API(g2, double, zkt::launch_point<zkt::Fq2>,
               zkt::jac_double_kernel<zkt::Fq2>, 1)

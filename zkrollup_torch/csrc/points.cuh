@@ -1,9 +1,9 @@
 // The zkrollup_torch point kernels: the lanes of curve.cuh over the
-// coordinate field E, one launch function each. Four are templates over E
-// (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu); the add and the mixed add
-// without the doubling path are built over FqCall (fq_call.cuh, one thread
-// a G1 lane, g1.cu's g1_add and g1_madd_nd) and over Fq2Pair (two threads
-// a G2 lane, g2.cu's g2_add and g2_madd_nd).
+// coordinate field E, one launch function each. Three are templates over E
+// (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu); the add and both mixed adds
+// are built over FqCall (fq_call.cuh, one thread a G1 lane, g1.cu's
+// g1_add, g1_madd_nd and g1_madd) and over Fq2Pair (two threads a G2 lane,
+// g2.cu's g2_add, g2_madd_nd and g2_madd).
 //
 //   jac_add         replaces pallas_curve.py:g1_add (_add_kernel) over
 //                   FqCall (g1_add_kernel); over Fq2Pair (jac_add_pair)
@@ -18,8 +18,9 @@
 //   jac_madd_nd     replaces pallas_curve.py:g1_madd_nd over FqCall
 //                   (g1_madd_nd_kernel); over Fq2Pair (jac_madd_nd_pair)
 //                   pallas_curve_g2.py:g2_madd_nd
-//   jac_madd<E>     replaces pallas_curve.py:g1_madd
-//                   (_make_madd_kernel(False)) and g2_madd
+//   jac_madd        replaces pallas_curve.py:g1_madd
+//                   (_make_madd_kernel(False)) over FqCall (g1_madd_kernel);
+//                   over Fq2Pair (jac_madd_pair) pallas_curve_g2.py:g2_madd
 //   jac_double<E>   replaces pallas_curve.py:g1_double (_double_kernel) and
 //                   g2_double
 //
@@ -42,10 +43,11 @@
 //   jac_add_z01 G1 6 + 6,       192 +  96 B;  G2 16 + 13,     384 + 192 B
 // The storage moves twice those bytes: every coordinate is a 64-byte row
 // of 16 int32 limbs, half of each word zero. The kernels are branch-free,
-// so every lane also computes the doubling path, but for g1_add, which
-// computes it only in warps that need it. At 64 multiplies per SM
-// per clock every point kernel is multiply-bound on the packed bytes; the
-// G1 double and the G1 add_z01 come closest to the balance point.
+// so every lane also computes the doubling path, but for g1_add, g1_madd
+// and g2_madd, which compute it only in warps that need it. At 64
+// multiplies per SM per clock every point kernel is multiply-bound on the
+// packed bytes; the G1 double and the G1 add_z01 come closest to the
+// balance point.
 //
 // Register pressure and latency are the other limit. A G1 point add holds
 // ~10 live field elements (80 registers); one thread computing an Fq2 add
@@ -55,17 +57,16 @@
 // accept the spill: it stays in L1 and no intermediate goes to device
 // memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> and
 // jac_add_z01<Fq2> 255 registers and 60 bytes of spill stores each,
-// jac_madd<Fq2> 255 and 20 bytes, jac_double<Fq2> 137; over Fq
-// jac_add_nd 142, jac_add_z01 127, jac_madd 128, jac_double 64, none of
-// them spilling. jac_add<Fq2> and jac_madd_nd<Fq2>, which g2.cu no longer
-// builds, took 255 and spilled 172 and 16 bytes; jac_add<Fq> and
-// jac_madd_nd<Fq>, which g1.cu no longer builds, 131 and 123.) Over
-// FqCall, its product called, g1_add_kernel takes 149 registers and
-// g1_madd_nd_kernel 124, no spill, at the launch bounds of g1.cu.
-// The Fq2Pair kernels (fq2_pair.cuh) halve both: 8 registers a value and
-// half the chain a thread, each Fq2 product one Montgomery reduction of
-// two unreduced products; their launch bounds and ptxas figures are in
-// g2.cu.
+// jac_double<Fq2> 137; over Fq jac_add_nd 142, jac_add_z01 127,
+// jac_double 64, none of them spilling. jac_add<Fq2>, jac_madd_nd<Fq2> and
+// jac_madd<Fq2>, which g2.cu no longer builds, took 255 and spilled 172,
+// 16 and 20 bytes; jac_add<Fq>, jac_madd_nd<Fq> and jac_madd<Fq>, which
+// g1.cu no longer builds, 131, 123 and 128.) Over FqCall, its product
+// called, the three G1 kernels fit without spill at the launch bounds of
+// g1.cu, whose comment gives their registers. The Fq2Pair kernels
+// (fq2_pair.cuh) halve both: 8 registers a value and half the chain a
+// thread, each Fq2 product one Montgomery reduction of two unreduced
+// products; their launch bounds and ptxas figures are in g2.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -89,12 +90,12 @@ namespace zkt {
 
 ZKT_POINT_KERNEL(jac_add_nd_kernel, jac_add_nd_lane)
 ZKT_POINT_KERNEL(jac_add_z01_kernel, jac_add_z01_lane)
-ZKT_POINT_KERNEL(jac_madd_kernel, jac_madd_lane)
 ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 #undef ZKT_POINT_KERNEL
 
 // A kernel of one thread a lane over E with at least MIN_BLOCKS blocks of
-// 128 threads resident an SM (g1.cu's g1_add and g1_madd_nd over FqCall).
+// 128 threads resident an SM (g1.cu's g1_add, g1_madd_nd and g1_madd over
+// FqCall).
 // Past the ragged edge a thread computes lane n - 1 again and stores
 // nothing, so that every thread of a warp reaches a warp vote.
 #define ZKT_LANE_KERNEL(NAME, LANE, E, MIN_BLOCKS)                         \
@@ -108,8 +109,8 @@ ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 // 2i+1. Past the ragged edge a thread computes lane n - 1 again, so that
 // every thread of a warp reaches the shuffles, and stores nothing.
 // Launch bounds from ptxas -v for sm_90a (chip_smoke.py phase 1): at 128
-// threads a block and 3 blocks an SM (12 warps) both paired kernels fit
-// with no spill (g2.cu). A block is whole warps, so every warp is full
+// threads a block and 3 blocks an SM (12 warps) the three paired kernels
+// fit with no spill (g2.cu). A block is whole warps, so every warp is full
 // and both threads of a pair sit in one warp.
 constexpr int PAIR_THREADS = 128;
 constexpr int PAIR_MIN_BLOCKS = 3;

@@ -10,6 +10,15 @@ step's q is affine or infinity, which is madd_z01's contract, so each
 window is one launch of the g1_madd / g2_madd kernel (its doubling path
 makes it correct for every pair). The batch is then normalised to packed
 affine form with one Fermat inversion per point on the mont_mul kernel.
+
+A table is cut into chunks only to bound device memory: 1 << 19 G1 and
+1 << 17 G2 scalars a chunk, so the (2,6) key's tables (482,413 G1 scalars,
+the five tables concatenated, and 117,114 G2) are one chunk each, about
+0.2 GB of digits and 0.3 GB of points for G1. The reference's chunks
+(1 << 15 and 1 << 14, zkrollup/msm/fixed_base.py) fit a TPU's memory; on
+the H100 they cut each launch below one wave of the point kernels and ran
+the Fermat inversion (about 360 mont_mul launches) once a chunk. The key's
+bytes do not depend on the chunk.
 """
 
 from __future__ import annotations
@@ -154,7 +163,7 @@ def _scalar_chunk(scalars_int, i: int, chunk: int, device) -> torch.Tensor:
         [x % ref.R for x in scalars_int[i:i + chunk]]), device)
 
 
-def g1_points_from_scalars(scalars_int, chunk: int = 1 << 15,
+def g1_points_from_scalars(scalars_int, chunk: int = 1 << 19,
                            device="cuda"):
     """Host int scalars -> packed affine (x, y, inf) numpy arrays of
     scalar_i * G1, computed on `device`. Chunked so device memory stays
@@ -170,7 +179,7 @@ def g1_points_from_scalars(scalars_int, chunk: int = 1 << 15,
     return (np.concatenate(xs), np.concatenate(ys), np.concatenate(infs))
 
 
-def g2_points_from_scalars(scalars_int, chunk: int = 1 << 14,
+def g2_points_from_scalars(scalars_int, chunk: int = 1 << 17,
                            device="cuda"):
     device = torch.device(device)
     out = None
