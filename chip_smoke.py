@@ -78,6 +78,21 @@ Phases; any failure raises and the script exits non-zero:
      the G1 add_nd), each counted from 0 just before its path; each kernel
      of a path must launch on it; on prove ntt_pass and mont_mul[fr] at most
      six times, fold[fr] eight times, limbs.normalize on CUDA tensors never
+  9. the operator loop through the port's entry points (the "operator"
+     path): `python -m zkrollup_torch.cli demo-rollup` in-process on the
+     card with phase 3's key cached in a temporary --keys-dir (the
+     contract's balances A 0.57 ETH nonce 2, B 1.4 ETH, fees 0.03); the
+     batch daemon's run_pipeline over four sends (two batches) and eight
+     more (four), against the contract's balances and root, with
+     batches/s and each batch's witness, prove and verify seconds; the
+     same batches through step() one at a time; the HTTP service on a
+     free port (deposits, sends, /admin/prove-batch proving on a server
+     thread, the users' balances). Then the withdraw circuit (the
+     "withdraw" path): WithdrawProver's key made on the card, equal to
+     setup_host's byte for byte; a withdraw proof at pinned (r, s), equal
+     to the native engine's, paid out by the contract once and refused on
+     nullifier reuse, with its launches and lanes; `demo-withdraw` through
+     the CLI. Each kernel of the two paths must launch on it
 The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
@@ -155,7 +170,17 @@ PATHS = {
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
               "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi"),
     "curve": ("g1_add_nd",),
+    # phase 9: the operator loop's proofs (demo-rollup, the daemon, the
+    # HTTP service) with phase 3's key; the withdraw circuit's setup and
+    # proofs
+    "operator": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
+                 "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
+    "withdraw": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
+                 "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add", "g1_madd",
+                 "g2_madd"),
 }
+# the paths phase 9 drives; phase 8 checks the others
+LOOP_PATHS = ("operator", "withdraw")
 
 # -- the bound: the least time an H100 SXM could take for a kernel's work ---
 HBM_BYTES_PER_S = 3.35e12          # device memory rate (NVIDIA data sheet)
@@ -1502,6 +1527,355 @@ def curve_path(dev, launches):
         "zkrollup_torch.ref")
 
 
+# -- phase 9: the operator loop ----------------------------------------------
+
+LOOP_PRIV = (1234567890123456789, 9876543210987654321)   # users A and B
+WITHDRAW_NULLIFIER = 0x5eed
+
+
+def run_cli(argv) -> tuple:
+    """zkrollup_torch.cli.main(argv) in this process, its standard output
+    captured and logged indented. Returns (exit code, output)."""
+    import io
+    from zkrollup_torch.cli import main as cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"    | {line}")
+    return rc, out.getvalue()
+
+
+class LoopEnv:
+    """One operator over a fresh chain simulator: contract, state, queue,
+    daemon and app around `prover` (cli/main.py's wiring)."""
+
+    def __init__(self, prover):
+        from zkrollup_torch.chain.simulator import RollUpContract
+        from zkrollup_torch.operator.batchd import BatchDaemon
+        from zkrollup_torch.operator.queue import TxQueue
+        from zkrollup_torch.operator.service import OperatorApp
+        from zkrollup_torch.operator.state import OperatorState
+        from zkrollup_torch.ref import eddsa
+        cfg = prover.cfg
+        self.contract = RollUpContract(cfg, tx_vk=prover.ensure_keys().vk,
+                                       withdraw_vk=None)
+        self.state = OperatorState(cfg)
+        self.queue = TxQueue()
+        self.daemon = BatchDaemon(cfg, self.state, self.queue, prover,
+                                  self.contract)
+        self.app = OperatorApp(cfg, self.state, self.queue, self.contract,
+                               self.daemon)
+        self.pubs = [eddsa.gen_public_key(k) for k in LOOP_PRIV]
+
+    def deposit(self, eth_a, eth_b):
+        for pub, eth in zip(self.pubs, (eth_a, eth_b)):
+            self.contract.deposit(pub[0], pub[1], wei(eth))
+        self.app.sync_chain()
+
+    def send_body(self, nonce, amount, fee) -> dict:
+        from zkrollup_torch.ref import eddsa
+        from zkrollup_torch.witness.assembler import Transaction, format_tx
+        tx = Transaction(0, 1, wei(amount), wei(fee), nonce)
+        tx.signature = eddsa.sign(LOOP_PRIV[0], format_tx(tx))
+        return {"from": 0, "to": 1, "amount": str(tx.amount),
+                "fee": str(tx.fee), "nonce": nonce,
+                "signature": {"R8": [str(tx.signature.R8[0]),
+                                     str(tx.signature.R8[1])],
+                              "S": str(tx.signature.S)}}
+
+    def send(self, nonces, amount=0.1, fee=0.01):
+        for n in nonces:
+            resp = self.app.post_send(self.send_body(n, amount, fee))
+            if resp != {"status": "Transaction accepted"}:
+                raise AssertionError(f"/send nonce {n}: {resp}")
+
+    def check(self, what, eth_a, nonce_a, eth_b, fees):
+        """The contract's balances and fees, and the operator's root equal
+        to the contract's."""
+        from zkrollup_torch.ref.mimc import multi_hash
+        a, b = (self.contract.get_user_data(multi_hash(list(p)))
+                for p in self.pubs)
+        got = (a[3], a[4], b[3], self.contract.get_accrued_fees())
+        want = (wei(eth_a), nonce_a, wei(eth_b), wei(fees))
+        roots = (self.state.load_tree().root,
+                 self.contract.balance_tree.get_root())
+        log(f"  {what}: contract A {a[3] / 1e18} ETH nonce {a[4]}, B "
+            f"{b[3] / 1e18} ETH, fees {got[3] / 1e18} ETH; operator root "
+            + ("equals" if roots[0] == roots[1] else "DIFFERS from")
+            + " the contract's")
+        if got != want or roots[0] != roots[1]:
+            raise AssertionError(f"{what}: contract {got}, want {want}; "
+                                 f"roots {roots}")
+
+
+@contextlib.contextmanager
+def batch_records(prover):
+    """Each proof prove_prepared makes while open (the daemon's step and
+    run_pipeline both prove through it): (witness_s of its batch, prove_s,
+    verify_s)."""
+    records = []
+    orig = prover.prove_prepared
+
+    def recorded(prep, r=None, s=None):
+        proof = orig(prep, r=r, s=s)
+        st = prover.stats
+        records.append((prep.witness_s, st.prove_s, st.verify_s))
+        return proof
+
+    prover.prove_prepared = recorded
+    try:
+        yield records
+    finally:
+        del prover.prove_prepared
+
+
+def log_batches(label, records, wall):
+    n = len(records)
+    log(f"  {label}: {n} batches in {wall:.3f} s, {n / wall:.3f} batches/s")
+    for i, (w, p, v) in enumerate(records):
+        log(f"    batch {i + 1}: witness_s {w:.3f}, prove_s {p:.3f}, "
+            f"verify_s {v:.3f}")
+    sums = [sum(r[k] for r in records) for k in range(3)]
+    log(f"    sums: witness {sums[0]:.3f} s, prove {sums[1]:.3f} s, verify "
+        f"{sums[2]:.3f} s")
+
+
+def operator_loop(dev, prover, launches):
+    """Phase 9, the "operator" path: demo-rollup through the CLI, the
+    pipelined daemon, the same batches stepped, the HTTP service; all with
+    phase 3's card-made key on `prover`'s device."""
+    import tempfile
+    import urllib.request
+    import torch
+    from zkrollup_torch import kernels
+    from zkrollup_torch.operator.service import start_app
+
+    cfg = prover.cfg
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as keys_dir:
+        t0 = time.time()
+        prover.ensure_keys().save(os.path.join(
+            keys_dir, f"tx_{cfg.batch_size}_{cfg.tree_depth}.npz"))
+        log(f"  phase 3's key saved to the CLI's --keys-dir: "
+            f"{time.time() - t0:.3f} s")
+        t0 = time.time()
+        rc, out = run_cli(["--keys-dir", keys_dir, "--device", str(dev),
+                           "demo-rollup"])
+    log(f"  demo-rollup through zkrollup_torch.cli.main: exit code {rc}, "
+        f"{time.time() - t0:.3f} s (key load and R1CS digest, one batch)")
+    for want in ("A: balance 0.57 ETH nonce 2", "B: balance 1.4 ETH nonce 0",
+                 "accrued fees: 0.03 ETH", "DEMO ROLLUP OK"):
+        if rc != 0 or want not in out:
+            raise AssertionError(f"demo-rollup: exit code {rc}, no {want!r}")
+
+    # the pipelined daemon: tests/test_e2e_rollup.py's four sends, then
+    # eight more; the stepped daemon on the same sends apart
+    pipe, stepped = LoopEnv(prover), LoopEnv(prover)
+    for env in (pipe, stepped):
+        env.deposit(2.0, 1.0)
+        env.send(range(1, 5))
+    with batch_records(prover) as rec:
+        t0 = time.time()
+        done = pipe.daemon.run_pipeline(max_batches=2)
+        log_batches("run_pipeline(max_batches=2)", rec, time.time() - t0)
+    if done != 2 or pipe.queue.pending_count():
+        raise AssertionError(f"run_pipeline settled {done} batches")
+    pipe.check("after two pipelined batches", 1.56, 4, 1.40, 0.04)
+    for env in (pipe, stepped):
+        env.send(range(5, 13))
+    with batch_records(prover) as rec:
+        t0 = time.time()
+        done = pipe.daemon.run_pipeline(max_batches=4)
+        pipe_s = time.time() - t0
+        log_batches("run_pipeline(max_batches=4)", rec, pipe_s)
+    if done != 4 or pipe.queue.pending_count():
+        raise AssertionError(f"run_pipeline settled {done} batches")
+    pipe.check("after four more", 0.68, 12, 2.20, 0.12)
+    m = pipe.daemon.metrics.snapshot()
+    log(f"  the daemon's metrics: {m}")
+
+    for _ in range(2):                      # the first two batches
+        if not stepped.daemon.step():
+            raise AssertionError("step() settled no batch")
+    with batch_records(prover) as rec:
+        t0 = time.time()
+        for _ in range(4):
+            if not stepped.daemon.step():
+                raise AssertionError("step() settled no batch")
+        step_s = time.time() - t0
+        log_batches("the same four batches through step(), one at a time",
+                    rec, step_s)
+    stepped.check("after six stepped batches", 0.68, 12, 2.20, 0.12)
+    log(f"  pipeline against step: {step_s / pipe_s:.3f}x the batches/s")
+
+    # the HTTP service: /admin/prove-batch proves on a server thread
+    env = LoopEnv(prover)
+    server = start_app(env.app, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def http(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data,
+                                     method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.load(r)
+
+    try:
+        for pub in env.pubs:
+            http("/chain/deposit", {"publicKey": [str(pub[0]), str(pub[1])],
+                                    "value": str(wei(1.0))})
+        for nonce, amount, fee in ((1, 0.1, 0.01), (2, 0.3, 0.02)):
+            reply = http("/send", env.send_body(nonce, amount, fee))
+            if reply != {"status": "Transaction accepted"}:
+                raise AssertionError(f"POST /send: {reply}")
+        t0 = time.time()
+        reply = http("/admin/prove-batch", {})
+        log(f"  HTTP on port {server.server_address[1]}: POST "
+            f"/admin/prove-batch (a proof on a server thread) "
+            f"{time.time() - t0:.3f} s: {reply}")
+        if reply.get("processed") is not True:
+            raise AssertionError(f"POST /admin/prove-batch: {reply}")
+        users = [http(f"/users/index/{i}") for i in (0, 1)]
+        log(f"  GET /users/index/0: {users[0]['balance']} wei nonce "
+            f"{users[0]['nonce']}; /users/index/1: {users[1]['balance']} wei")
+        if ((users[0]["balance"], users[0]["nonce"], users[1]["balance"])
+                != (str(wei(0.57)), 2, str(wei(1.4)))):
+            raise AssertionError(f"GET /users after the batch: {users}")
+        log(f"  GET /metrics: {http('/metrics')}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    env.check("after the HTTP batch", 0.57, 2, 1.4, 0.03)
+    torch.cuda.synchronize()
+    count_path(launches, "operator")
+
+
+def withdraw_path(dev, launches):
+    """Phase 9, the "withdraw" path: WithdrawProver's key made on the card
+    against setup_host's, a proof at pinned (r, s) against the native
+    engine's, the contract's payout and its refusal of the nullifier's
+    reuse, steady proofs, then demo-withdraw through the CLI."""
+    import random
+    import tempfile
+    import torch
+    from zkrollup_torch import kernels
+    from zkrollup_torch.chain.simulator import RollUpContract
+    from zkrollup_torch.config import RollupConfig
+    from zkrollup_torch.groth16.prove import prove_host
+    from zkrollup_torch.groth16.setup import setup_host
+    from zkrollup_torch.operator.prover import WithdrawProver
+    from zkrollup_torch.r1cs.circuits import synthesize_withdraw
+    from zkrollup_torch.ref import eddsa
+    from zkrollup_torch.ref.bn254 import R as FR_MOD
+
+    wp = WithdrawProver(key_path=None, setup_seed=SETUP_SEED, device=dev,
+                        c=12)
+    r1cs = wp.structure_r1cs()
+    kernels.reset_launches()
+    t0 = time.time()
+    pk = wp.ensure_keys()
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    at_setup = {k: (kernels.LAUNCHES[k], kernels.LANES[k])
+                for k in kernels.LAUNCHES}
+    t0 = time.time()
+    host = setup_host(r1cs, seed=SETUP_SEED)
+    log(f"  withdraw key ({pk.n_vars} vars, {pk.n_public} public, domain "
+        f"{pk.domain_size}) on {dev}: {card_s:.3f} s; setup_host "
+        f"{time.time() - t0:.3f} s")
+    bad = same_key(pk, host)
+    if bad:
+        raise AssertionError(f"card-made withdraw key differs from "
+                             f"setup_host's: {bad}")
+    log("  the two withdraw keys are equal byte for byte")
+
+    fpriv = eddsa.format_priv_key_for_babyjub(LOOP_PRIV[0])
+    r0, s0 = PINNED_RS
+    t0 = time.time()
+    proof, signals = wp.prove_withdraw(fpriv, WITHDRAW_NULLIFIER, r0, s0)
+    first_s = time.time() - t0
+    st = wp.stats
+    log(f"  first withdraw proof (self-verified): {first_s:.3f} s (witness "
+        f"{st.witness_s:.3f}, prove {st.prove_s:.3f}, verify "
+        f"{st.verify_s:.3f})")
+    prove_only = {k: (kernels.LAUNCHES[k] - at_setup[k][0],
+                      kernels.LANES[k] - at_setup[k][1])
+                  for k in kernels.LAUNCHES}
+    log("  its launches (lanes per launch): " + ", ".join(
+        f"{k} {n} ({lanes / n:.1f})" for k, (n, lanes) in prove_only.items()
+        if n))
+    res = synthesize_withdraw(fpriv, WITHDRAW_NULLIFIER)
+    want = prove_host(pk, res.r1cs, res.witness, r=r0, s=s0)
+    if proof_bytes(proof) != proof_bytes(want) or signals != \
+            res.public_signals:
+        raise AssertionError("the withdraw proof differs from the native "
+                             "engine's")
+    log("  its bytes equal the native engine's")
+
+    contract = RollUpContract(RollupConfig(), tx_vk=None, withdraw_vk=pk.vk)
+    pub = eddsa.gen_public_key(LOOP_PRIV[0])
+    contract.deposit(pub[0], pub[1], wei(1.0))
+    paid = contract.withdraw(wei(0.4), proof, signals)
+    try:
+        contract.withdraw(wei(0.1), proof, signals)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the contract accepted a reused nullifier")
+    log(f"  the contract paid {paid / 1e18} ETH, then refused the reuse: "
+        f"{refused}")
+    if paid != wei(0.4) or refused != "Nullifier has been used":
+        raise AssertionError(f"withdraw: paid {paid}, refused {refused!r}")
+
+    rng = random.Random(SEED)
+    steady = []
+    for i in range(3):
+        r, s = rng.randrange(1, FR_MOD), rng.randrange(1, FR_MOD)
+        t0 = time.time()
+        wp.prove_withdraw(fpriv, WITHDRAW_NULLIFIER + i + 1, r, s)
+        steady.append(time.time() - t0)
+        log(f"  withdraw proof {i + 1} at random (r, s): {steady[-1]:.3f} s "
+            f"(witness {st.witness_s:.3f}, prove {st.prove_s:.3f}, verify "
+            f"{st.verify_s:.3f})")
+    log(f"  steady withdraw proofs: {len(steady) / sum(steady):.3f}/s")
+
+    with tempfile.TemporaryDirectory() as keys_dir:
+        pk.save(os.path.join(keys_dir, "withdraw.npz"))
+        t0 = time.time()
+        rc, out = run_cli(["--keys-dir", keys_dir, "--device", str(dev),
+                           "demo-withdraw"])
+    log(f"  demo-withdraw through zkrollup_torch.cli.main: exit code {rc}, "
+        f"{time.time() - t0:.3f} s")
+    for want_line in ("withdrew 0.4 ETH; remaining 0.6",
+                      "nullifier reuse rejected: Nullifier has been used",
+                      "DEMO WITHDRAW OK"):
+        if rc != 0 or want_line not in out:
+            raise AssertionError(f"demo-withdraw: exit code {rc}, no "
+                                 f"{want_line!r}")
+    torch.cuda.synchronize()
+    count_path(launches, "withdraw")
+
+
+def launch_table(launches, paths):
+    log(f"  {'kernel':14s} " + " ".join(f"{p:>19s}" for p in paths))
+    for k in KERNELS:
+        cells = []
+        for p in paths:
+            count, lanes, _ = launches[p][k]
+            cells.append(f"{count:7d} x {lanes / max(1, count):9.1f}")
+        log(f"  {k:14s} " + " ".join(cells))
+
+
+def check_paths(launches, paths):
+    """Each kernel of each of `paths` launched on it."""
+    missing = [(p, k) for p in paths for k in PATHS[p]
+               if launches[p][k][0] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on their path: "
+                             f"{missing}")
+
+
 def ab_run(dev, bases: list, keep) -> list:
     """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES of this
     checkout against those built from each csrc/ directory of `bases`. Every unit they live
@@ -1899,20 +2273,18 @@ def main() -> int:
     curve_path(dev, launches)
 
     log("phase 8: launches, and lanes per launch, on each path")
-    log(f"  {'kernel':14s} " + " ".join(f"{p:>19s}" for p in PATHS))
-    for k in KERNELS:
-        cells = []
-        for p in PATHS:
-            count, lanes, _ = launches[p][k]
-            cells.append(f"{count:7d} x {lanes / max(1, count):9.1f}")
-        log(f"  {k:14s} " + " ".join(cells))
+    earlier = [p for p in PATHS if p not in LOOP_PATHS]
+    launch_table(launches, earlier)
     check_widest("prove", launches["prove"], PROVE_SHAPES)
     check_prove_limits(launches)
-    missing = [(p, k) for p, ks in PATHS.items() for k in ks
-               if launches[p][k][0] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on their path: "
-                             f"{missing}")
+    check_paths(launches, earlier)
+
+    log("phase 9: the operator loop, BatchProcessTx(2, 6) and withdraw")
+    operator_loop(dev, prover, launches)
+    withdraw_path(dev, launches)
+    log("  launches, and lanes per launch, on the loop's paths")
+    launch_table(launches, LOOP_PATHS)
+    check_paths(launches, LOOP_PATHS)
     unlaunched = [k for k in KERNELS
                   if not any(launches[p][k][0] for p in PATHS)]
     if unlaunched:

@@ -7,9 +7,11 @@ tools/profile_alu.py too); the NTT, the quotient, the MSM window sums and
 the general MSM on the card against the same functions on the CPU; the
 bucket strategies and the GLV MSM against the native engine; the G2
 point-kernel check; a small setup on the card against the native engine's;
-TxProver.prove_batch against prove_prepared; and the BatchProcessTx(2,6)
-proof against the native engine. Every test needs a CUDA device and skips
-without one.
+TxProver.prove_batch against prove_prepared; the BatchProcessTx(2,6)
+proof against the native engine; and the operator loop: a withdraw proof
+against the native engine's, the pipelined batch daemon settling on the
+chain simulator, and the provers' default device. Every test needs a CUDA
+device and skips without one.
 
 The file imports neither JAX nor the zkrollup package, so it runs where JAX
 is not installed, as on the machine with the card (tests/conftest.py
@@ -590,3 +592,87 @@ def test_msm_trees_on_cuda_match_native_engine(cuda_device, name):
         for tree in ("scan", "jacobian"):
             got = msm_glv(pts, sc.to(cuda_device), c=6, tree=tree)
             assert affine(got) == want, f"glv {tree}"
+
+
+@pytest.mark.cuda
+def test_withdraw_proof_on_cuda_equals_native_engine(cuda_device):
+    """The withdraw circuit (domain 2^12, 3,585 variables): WithdrawProver
+    on the card with a setup_host key gives prove_host's bytes at pinned
+    (r, s), and they verify."""
+    from zkrollup_torch.groth16.prove import prove_host
+    from zkrollup_torch.groth16.setup import setup_host
+    from zkrollup_torch.groth16.verify import verify
+    from zkrollup_torch.operator.prover import WithdrawProver
+    from zkrollup_torch.r1cs.circuits import synthesize_withdraw
+    from zkrollup_torch.ref import eddsa
+    prover = WithdrawProver(device=cuda_device)
+    prover.pk = setup_host(prover.structure_r1cs(), seed=b"cuda-withdraw")
+    fpriv = eddsa.format_priv_key_for_babyjub(41516261718191101)
+    proof, signals = prover.prove_withdraw(fpriv, 777, r=5, s=6)
+    res = synthesize_withdraw(fpriv, 777)
+    want = prove_host(prover.pk, res.r1cs, res.witness, r=5, s=6)
+    assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+    assert signals == res.public_signals
+    assert verify(prover.pk.vk, proof, signals)
+
+
+@pytest.mark.cuda
+def test_run_pipeline_on_cuda_settles_on_the_contract(cuda_device):
+    """BatchDaemon.run_pipeline over four sends, two BatchProcessTx(2, 6)
+    batches proven on the card with a setup_host key: A 1.56 ETH nonce 4,
+    B 1.40 ETH, fees 0.04, and the operator's root equals the contract's."""
+    from zkrollup_torch.chain.simulator import RollUpContract
+    from zkrollup_torch.config import RollupConfig
+    from zkrollup_torch.groth16.setup import setup_host
+    from zkrollup_torch.operator.batchd import BatchDaemon
+    from zkrollup_torch.operator.prover import TxProver
+    from zkrollup_torch.operator.queue import TxQueue
+    from zkrollup_torch.operator.service import OperatorApp
+    from zkrollup_torch.operator.state import OperatorState
+    from zkrollup_torch.ref import eddsa
+    from zkrollup_torch.ref.mimc import multi_hash
+    from zkrollup_torch.witness.assembler import Transaction, format_tx
+    cfg = RollupConfig()
+    prover = TxProver(cfg, device=cuda_device)
+    prover.pk = setup_host(prover.structure_r1cs(), seed=b"cuda-pipeline")
+    contract = RollUpContract(cfg, tx_vk=prover.pk.vk, withdraw_vk=None)
+    state, queue = OperatorState(cfg), TxQueue()
+    daemon = BatchDaemon(cfg, state, queue, prover, contract)
+    app = OperatorApp(cfg, state, queue, contract, daemon)
+    privs = (41516261718191101, 41516261718191102)
+    pubs = [eddsa.gen_public_key(k) for k in privs]
+    contract.deposit(*pubs[0], 2 * 10 ** 18)
+    contract.deposit(*pubs[1], 10 ** 18)
+    app.sync_chain()
+    for nonce in range(1, 5):
+        tx = Transaction(0, 1, 10 ** 17, 10 ** 16, nonce)
+        tx.signature = eddsa.sign(privs[0], format_tx(tx))
+        assert queue.push(tx) == nonce - 1
+    assert daemon.run_pipeline(max_batches=2) == 2
+    a = contract.get_user_data(multi_hash(list(pubs[0])))
+    b = contract.get_user_data(multi_hash(list(pubs[1])))
+    assert (a[3], a[4], b[3]) == (156 * 10 ** 16, 4, 140 * 10 ** 16)
+    assert contract.get_accrued_fees() == 4 * 10 ** 16
+    assert state.load_tree().root == contract.balance_tree.get_root()
+    assert daemon.metrics.batches_proven == 2 and queue.pending_count() == 0
+
+
+@pytest.mark.cuda
+def test_provers_default_to_the_card(cuda_device):
+    """TxProver(cfg) and WithdrawProver() with no device or backend make
+    their keys and prove on cuda: kernels launch, and the proofs verify."""
+    from zkrollup_torch import kernels
+    from zkrollup_torch.config import RollupConfig
+    from zkrollup_torch.operator.prover import TxProver, WithdrawProver
+    from zkrollup_torch.ref import eddsa
+    tx_prover = TxProver(RollupConfig(batch_size=1, tree_depth=4))
+    w_prover = WithdrawProver()
+    assert (tx_prover.device, tx_prover.backend) == ("cuda", "device")
+    assert (w_prover.device, w_prover.backend) == ("cuda", "device")
+    kernels.reset_launches()
+    tx_prover.prove_batch(*_tx_batch(tx_prover, 41516261718191101))
+    w_prover.prove_withdraw(
+        eddsa.format_priv_key_for_babyjub(41516261718191101), 5)
+    for name in ("g1_madd", "g2_madd", "ntt_pass", "g1_madd_nd",
+                 "g2_madd_nd"):
+        assert kernels.LAUNCHES[name] > 0, name

@@ -73,13 +73,26 @@ def _sources():
 
 
 def test_the_scan_covers_every_source():
-    """The port's subpackages, its tools included, the smoke script and
-    the on-card tests."""
+    """The port's subpackages, its tools and operator loop (chain,
+    operator, tree store, CLI) included, the smoke script and the on-card
+    tests."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for want in ("zkrollup_torch/tools/profile_alu.py",
                  "zkrollup_torch/tools/g2_kernel_check.py",
                  "zkrollup_torch/msm/glv.py", "chip_smoke.py",
-                 "tests/test_torch_cuda.py"):
+                 "tests/test_torch_cuda.py",
+                 "zkrollup_torch/chain/simulator.py",
+                 "zkrollup_torch/chain/calldata.py",
+                 "zkrollup_torch/chain/genverifier.py",
+                 "zkrollup_torch/chain/deploy.py",
+                 "zkrollup_torch/tree/store.py",
+                 "zkrollup_torch/operator/state.py",
+                 "zkrollup_torch/operator/queue.py",
+                 "zkrollup_torch/operator/validation.py",
+                 "zkrollup_torch/operator/batchd.py",
+                 "zkrollup_torch/operator/service.py",
+                 "zkrollup_torch/cli/main.py",
+                 "zkrollup_torch/cli/__main__.py"):
         assert want in names
 
 

@@ -1,0 +1,191 @@
+"""The batch-prover daemon: queue -> batch -> proof -> rollUp() -> state sync.
+
+This is the component the reference implies but never ships: its redis queue
+is written by /send and never drained — the prove+submit loop exists only
+inside operator/__tests__/operatorLogic.test.ts (SURVEY §2.2 vestigial
+note). Here it is first-class: deterministic single-writer loop, fail-fast
+re-prove semantics (proving is stateless given tree snapshot + key —
+SURVEY §5 failure-handling obligation), metrics counters.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ..config import RollupConfig
+from ..chain.simulator import RollUpContract
+from .state import OperatorState
+from .queue import TxQueue
+from .prover import TxProver
+
+
+@dataclass
+class BatchMetrics:
+    """proofs/s and friends — the BASELINE.json headline counters
+    (SURVEY §5 metrics obligation)."""
+    batches_proven: int = 0
+    txs_processed: int = 0
+    proofs_failed: int = 0
+    last_prove_seconds: float = 0.0
+    total_prove_seconds: float = 0.0
+
+    @property
+    def proofs_per_second(self) -> float:
+        if self.total_prove_seconds == 0:
+            return 0.0
+        return self.batches_proven / self.total_prove_seconds
+
+    def snapshot(self) -> dict:
+        return {
+            "batches_proven": self.batches_proven,
+            "txs_processed": self.txs_processed,
+            "proofs_failed": self.proofs_failed,
+            "last_prove_seconds": self.last_prove_seconds,
+            "proofs_per_second": self.proofs_per_second,
+        }
+
+
+class BatchDaemon:
+    def __init__(self, cfg: RollupConfig, state: OperatorState,
+                 queue: TxQueue, prover: TxProver,
+                 contract: RollUpContract):
+        self.cfg = cfg
+        self.state = state
+        self.queue = queue
+        self.prover = prover
+        self.contract = contract
+        self.metrics = BatchMetrics()
+        # single-writer guard: step() is reachable both from the serve
+        # loop (--auto-batch) and from per-request /admin/prove-batch
+        # threads (ThreadingHTTPServer); without it two concurrent steps
+        # peek the same batch and double-submit/double-mark.
+        self._step_lock = threading.Lock()
+
+    def step(self) -> bool:
+        """Process one batch if enough txs are queued. Returns True if a
+        batch was submitted. Non-blocking single-writer: if another step
+        is already in flight this call is a no-op returning False."""
+        if not self._step_lock.acquire(blocking=False):
+            return False
+        try:
+            return self._step_locked()
+        finally:
+            self._step_lock.release()
+
+    def _step_locked(self) -> bool:
+        txs = self.queue.peek_batch(self.cfg.batch_size)
+        if txs is None:
+            return False
+
+        tree = self.state.load_tree()
+        t0 = time.time()
+        try:
+            proof, public_inputs, final_tree = self.prover.prove_batch(
+                tree, txs)
+        except Exception:
+            # fail-fast: proving is stateless, the batch stays queued for
+            # re-prove; surface the failure in metrics
+            self.metrics.proofs_failed += 1
+            raise
+        self.metrics.last_prove_seconds = time.time() - t0
+        self.metrics.total_prove_seconds += self.metrics.last_prove_seconds
+
+        # submit on-chain; the contract replays txData and updates its tree
+        self.contract.roll_up(proof, public_inputs)
+
+        # mark processed + persist the operator mirror
+        self.queue.mark_processed(len(txs))
+        self.state.apply_rollup_batch(final_tree)
+        self.metrics.batches_proven += 1
+        self.metrics.txs_processed += len(txs)
+        return True
+
+    def run(self, poll_interval: float = 1.0, max_batches: Optional[int] = None):
+        """Continuous loop (config 5's per-host loop)."""
+        done = 0
+        while max_batches is None or done < max_batches:
+            if self.step():
+                done += 1
+            else:
+                time.sleep(poll_interval)
+
+    def run_pipeline(self, max_batches: Optional[int] = None,
+                     queue_depth: int = 2,
+                     poll_interval: float = 0.2) -> int:
+        """DP pipeline (BASELINE config 5, VERDICT r4 #7): witness
+        synthesis for batch i+1 overlaps proving of batch i.
+
+        Correctness: the balance tree chains batch-to-batch through input
+        ASSEMBLY (prepare_batch returns the post-batch tree), not through
+        the proof — so a host thread prepares batches ahead along the
+        projected tree while the device proves in order. Submission,
+        mark_processed and state persistence stay strictly ordered in
+        this (single-writer) thread; a prove failure discards the
+        speculative preparations and leaves every unproven tx queued.
+        Returns the number of batches settled."""
+        import queue as _q
+        if not self._step_lock.acquire(blocking=False):
+            return 0
+        prepared: "_q.Queue" = _q.Queue(maxsize=queue_depth)
+        stop = threading.Event()
+
+        def witness_stage():
+            offset = 0
+            tree = self.state.load_tree()
+            prepared_n = 0
+            while not stop.is_set():
+                if max_batches is not None and prepared_n >= max_batches:
+                    break
+                txs = self.queue.peek_batch(self.cfg.batch_size,
+                                            offset=offset)
+                if txs is None:
+                    if max_batches is None:
+                        time.sleep(poll_interval)
+                        continue
+                    break
+                try:
+                    prep = self.prover.prepare_batch(tree, txs)
+                except Exception as e:       # surface in the prove thread
+                    prepared.put(e)
+                    return
+                tree = prep.final_tree       # chain the projected tree
+                offset += len(txs)
+                prepared_n += 1
+                prepared.put(prep)
+            prepared.put(None)               # end-of-stream
+
+        t = threading.Thread(target=witness_stage, daemon=True)
+        t.start()
+        done = 0
+        try:
+            while True:
+                prep = prepared.get()
+                if prep is None:
+                    break
+                if isinstance(prep, Exception):
+                    self.metrics.proofs_failed += 1
+                    raise prep
+                t0 = time.time()
+                try:
+                    proof = self.prover.prove_prepared(prep)
+                except Exception:
+                    self.metrics.proofs_failed += 1
+                    raise
+                self.metrics.last_prove_seconds = time.time() - t0
+                self.metrics.total_prove_seconds += (
+                    self.metrics.last_prove_seconds)
+                self.contract.roll_up(proof, prep.public_signals)
+                self.queue.mark_processed(len(prep.txs))
+                self.state.apply_rollup_batch(prep.final_tree)
+                self.metrics.batches_proven += 1
+                self.metrics.txs_processed += len(prep.txs)
+                done += 1
+                if max_batches is not None and done >= max_batches:
+                    break
+        finally:
+            stop.set()
+            self._step_lock.release()
+        return done

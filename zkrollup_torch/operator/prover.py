@@ -1,9 +1,14 @@
-"""BatchProcessTx proof service for the operator: key management, the host
-witness stage and the device prove stage with its mandatory self-verify.
+"""Proof services for the operator: key management, the host witness stage
+and the prove stage with its mandatory self-verify, for the BatchProcessTx
+circuit (TxProver) and the withdraw circuit (WithdrawProver).
 
-Counterpart of TxProver and PreparedBatch in zkrollup/operator/prover.py;
-circuit synthesis and input assembly are the port's copies of zkrollup's
-(r1cs.circuits, witness.assembler).
+Counterpart of zkrollup/operator/prover.py; circuit synthesis and input
+assembly are the port's copies of zkrollup's (r1cs.circuits,
+witness.assembler). Each prover takes `backend`: "device" proves with
+groth16.prove and makes keys with groth16.setup on `device`; "host" proves
+with prove_host and makes keys with setup_host on the native engine (the
+reference's host backend). Nothing chooses the host on its own: a prover
+asked for the device and given no card raises.
 """
 
 from __future__ import annotations
@@ -15,12 +20,12 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from ..config import RollupConfig
-from ..r1cs.circuits import synthesize_batch_process_tx
+from ..r1cs.circuits import synthesize_batch_process_tx, synthesize_withdraw
 from ..tree.merkle import MerkleTree
 from ..witness.assembler import Transaction, assemble_batch_inputs
 from ..groth16.keys import ProvingKey, Proof, r1cs_digest
-from ..groth16.prove import prove
-from ..groth16.setup import setup
+from ..groth16.prove import prove, prove_host
+from ..groth16.setup import setup, setup_host
 from ..groth16.verify import verify
 
 
@@ -43,6 +48,42 @@ def _dummy_tx_inputs(batch_size: int, depth: int) -> Dict:
         "intermediateBalanceTreeRoot": [z] * b,
         "intermediateBalanceTreePathElements": [[z] * d for _ in range(b)],
     }
+
+
+BACKENDS = ("device", "host")
+
+
+def _check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, not "
+                         f"{backend!r}")
+    return backend
+
+
+def _load_or_setup(key_path: Optional[str], r1cs, seed: Optional[bytes],
+                   backend: str, device) -> ProvingKey:
+    """The cached key at key_path when its R1CS digest matches r1cs, else a
+    new key (setup on `device`, or setup_host), saved to key_path if given
+    (its directory created). A discarded cache is not silent: the new key
+    comes from fresh toxic waste unless seeded, so verifiers deployed from
+    the old key reject every proof of the new one."""
+    if key_path and os.path.exists(key_path):
+        pk = ProvingKey.load(key_path)
+        if pk.r1cs_digest and pk.r1cs_digest == r1cs_digest(r1cs):
+            return pk
+        print(f"WARNING: cached proving key {key_path} has a stale R1CS "
+              "digest; regenerating. Verifiers deployed from the old key "
+              "are now invalid: redeploy them from the new VK.",
+              file=sys.stderr)
+    if backend == "host":
+        pk = setup_host(r1cs, seed=seed)
+    else:
+        pk = setup(r1cs, seed=seed, device=device)
+    if key_path:
+        os.makedirs(os.path.dirname(os.path.abspath(key_path)),
+                    exist_ok=True)
+        pk.save(key_path)
+    return pk
 
 
 @dataclass
@@ -68,16 +109,19 @@ class PreparedBatch:
 
 class TxProver:
     """BatchProcessTx(batch, depth) prover with cached keys, proving on
-    `device` with Pippenger window `c`; glv and tree go to groth16.prove
-    (the GLV G1 MSMs, the bucket strategy)."""
+    `device` with Pippenger window `c` (backend "device"), or on the native
+    engine (backend "host"); glv and tree go to groth16.prove (the GLV G1
+    MSMs, the bucket strategy)."""
 
     def __init__(self, cfg: RollupConfig, key_path: Optional[str] = None,
                  setup_seed: Optional[bytes] = None, *, device="cuda",
-                 c: int = 12, glv: bool = False, tree: str = "scan"):
+                 backend: str = "device", c: int = 12, glv: bool = False,
+                 tree: str = "scan"):
         self.cfg = cfg
         self.key_path = key_path
         self.setup_seed = setup_seed
         self.device = device
+        self.backend = _check_backend(backend)
         self.c = c
         self.glv = glv
         self.tree = tree
@@ -100,23 +144,11 @@ class TxProver:
 
     def ensure_keys(self) -> ProvingKey:
         """The cached key when its R1CS digest matches, else a new key from
-        the setup on this prover's device (saved to key_path if given)."""
-        if self.pk is not None:
-            return self.pk
-        r1cs = self.structure_r1cs()
-        if self.key_path and os.path.exists(self.key_path):
-            pk = ProvingKey.load(self.key_path)
-            if pk.r1cs_digest and pk.r1cs_digest == r1cs_digest(r1cs):
-                self.pk = pk
-                return pk
-            print(f"WARNING: cached proving key {self.key_path} has a stale "
-                  "R1CS digest; regenerating. Verifiers deployed from the old "
-                  "key are now invalid.", file=sys.stderr)
-        self.pk = setup(r1cs, seed=self.setup_seed, device=self.device)
-        if self.key_path:
-            os.makedirs(os.path.dirname(os.path.abspath(self.key_path)),
-                        exist_ok=True)
-            self.pk.save(self.key_path)
+        this prover's backend (saved to key_path if given)."""
+        if self.pk is None:
+            self.pk = _load_or_setup(self.key_path, self.structure_r1cs(),
+                                     self.setup_seed, self.backend,
+                                     self.device)
         return self.pk
 
     def prepare_batch(self, tree: MerkleTree,
@@ -138,9 +170,13 @@ class TxProver:
         """Device stage: prove, then the mandatory self-verify."""
         pk = self.ensure_keys()
         t0 = time.time()
-        proof = prove(pk, self.structure_r1cs(), prep.witness, r=r, s=s,
-                      device=self.device, c=self.c, glv=self.glv,
-                      tree=self.tree)
+        if self.backend == "host":
+            proof = prove_host(pk, self.structure_r1cs(), prep.witness,
+                               r=r, s=s)
+        else:
+            proof = prove(pk, self.structure_r1cs(), prep.witness, r=r, s=s,
+                          device=self.device, c=self.c, glv=self.glv,
+                          tree=self.tree)
         self.stats.prove_s = time.time() - t0
         t0 = time.time()
         if not verify(pk.vk, proof, prep.public_signals):
@@ -157,3 +193,60 @@ class TxProver:
         prep = self.prepare_batch(tree, txs)
         proof = self.prove_prepared(prep, r=r, s=s)
         return proof, prep.public_signals, prep.final_tree
+
+
+class WithdrawProver:
+    """Withdraw-circuit prover with cached keys: knowledge of the private
+    key behind a public key, with a nullifier (4 public signals). `device`,
+    `backend` and `c` as for TxProver."""
+
+    def __init__(self, key_path: Optional[str] = None,
+                 setup_seed: Optional[bytes] = None, *, device="cuda",
+                 backend: str = "device", c: int = 12):
+        self.key_path = key_path
+        self.setup_seed = setup_seed
+        self.device = device
+        self.backend = _check_backend(backend)
+        self.c = c
+        self.pk: Optional[ProvingKey] = None
+        self.stats = ProveStats()
+        self._r1cs = None
+
+    def structure_r1cs(self):
+        if self._r1cs is None:
+            self._r1cs = synthesize_withdraw(0, 0, check=False).r1cs
+        return self._r1cs
+
+    def ensure_keys(self) -> ProvingKey:
+        """The cached key when its R1CS digest matches, else a new key from
+        this prover's backend (saved to key_path if given)."""
+        if self.pk is None:
+            self.pk = _load_or_setup(self.key_path, self.structure_r1cs(),
+                                     self.setup_seed, self.backend,
+                                     self.device)
+        return self.pk
+
+    def prove_withdraw(self, formatted_priv_key: int, nullifier: int,
+                       r: Optional[int] = None, s: Optional[int] = None
+                       ) -> Tuple[Proof, List[int]]:
+        """Synthesize the witness, prove, self-verify. Returns (proof,
+        public signals). The proof is made against the cached structure
+        (the circuit is static), so its COO matrices are built, and copied
+        to the device, once per prover and not once per proof."""
+        pk = self.ensure_keys()
+        r1cs = self.structure_r1cs()
+        t0 = time.time()
+        res = synthesize_withdraw(formatted_priv_key, nullifier)
+        self.stats.witness_s = time.time() - t0
+        t0 = time.time()
+        if self.backend == "host":
+            proof = prove_host(pk, r1cs, res.witness, r=r, s=s)
+        else:
+            proof = prove(pk, r1cs, res.witness, r=r, s=s,
+                          device=self.device, c=self.c)
+        self.stats.prove_s = time.time() - t0
+        t0 = time.time()
+        if not verify(pk.vk, proof, res.public_signals):
+            raise RuntimeError("Invalid proof generated")
+        self.stats.verify_s = time.time() - t0
+        return proof, res.public_signals
