@@ -8,11 +8,12 @@ Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
   1. build the CUDA kernels (four nvcc processes at once, one per source of
      zkrollup_torch/csrc, with each kernel's registers, spill and stack
-     frame from the ptxas report; the six point kernels with launch bounds,
-     g1_add, g1_madd_nd, g1_madd, g2_add, g2_madd_nd and g2_madd, must not
-     spill, the first four logged beside their registers before g1_madd
-     and g2_madd moved) and the native host engine (g++, from native/src
-     into build/native), with seconds
+     frame from the ptxas report; the seven point kernels with launch
+     bounds, g1_add, g1_madd_nd, g1_madd, g2_add, g2_madd_nd, g2_madd and
+     g2_double, and the two Horner kernels must not spill, six logged
+     beside their registers before the unified add was factored out of
+     its lane) and the native host engine (g++, from native/src into
+     build/native), with seconds
   2. every kernel instantiation against its plain PyTorch version on the
      card, bit for bit, at the main path's widths, with both times and the
      kernel's bound (the least time the card could take for the work);
@@ -22,7 +23,15 @@ Phases; any failure raises and the script exits non-zero:
      the quotient timed; the fold on 2^17 rows with its edge rows; the
      gathered mont_mul at 164,215 lanes and mont_mul at the witness's
      117,114;
-     the double also on one lane, the width of the MSM's Horner; the four
+     the doubles (g2_double on thread pairs) also on ragged launches of
+     1, 22 and 33 lanes at two offsets, of 1,025 lanes and on one lane
+     (timed); the Horner kernels (g1_horner, g2_horner: the MSM's whole
+     combine in one launch) against horner_plain and against the route of
+     one double or add launch a step (horner_loop), Jacobian limbs, on
+     the msm's 22 windows at c = 12, on 1, 2 and 11 windows, at small c,
+     with infinity windows, on the add's doubling path and on P + (-P);
+     both routes timed there, device ms and wall ms, beside the bound and
+     the latency bound of the chain on one warp; the four
      point kernels of PROVE_SHAPES (g1_madd_nd, g1_add, g2_madd_nd,
      g2_add) also at the prove path's lanes per launch (timed there beside
      the bound at that width; the G1 two also at WAVE_LANES), the two of
@@ -63,7 +72,10 @@ Phases; any failure raises and the script exits non-zero:
      infinity rows) and its undeduplicated b2 table, against the native
      engine's Pippenger over the same tables, as affine points: msm() with
      the default bucket strategy (the "msm" path), then with the other
-     three strategies and msm_glv with two of them (the "msm_trees" path)
+     three strategies and msm_glv with two of them (the "msm_trees" path);
+     on each table's window sums the Horner kernel equals horner_loop limb
+     for limb, and msm() is timed with the Horner kernel and with the
+     window sums and horner_loop, in turns
   6. the GLV prover with the Jacobian merge tree (TxProver(glv=True,
      tree="jacobian"), the "prove_glv" path): the batch of phase 4 at the
      same pinned (r, s), whose bytes must equal phase 4's proof and the
@@ -71,13 +83,15 @@ Phases; any failure raises and the script exits non-zero:
   7. the tools (the "tools" path): profile_alu's rates of the integer
      unit beside the documented multiply peak, and the point-kernel check
      of every G2 kernel against zkrollup_torch.ref; then (the "curve" path)
-     JacobianCurve.add_nd over G1, the method that reaches g1_add_nd,
-     against zkrollup_torch.ref
+     JacobianCurve.add_nd and double over G1, the methods that reach
+     g1_add_nd and g1_double, against zkrollup_torch.ref
   8. the launch count and the lanes of every kernel on each path (setup,
      the first proof, the MSMs, the strategies, the GLV proof, the tools,
      the G1 add_nd), each counted from 0 just before its path; each kernel
      of a path must launch on it; on prove ntt_pass and mont_mul[fr] at most
-     six times, fold[fr] eight times, limbs.normalize on CUDA tensors never
+     six times, fold[fr] eight times, limbs.normalize on CUDA tensors never;
+     on the msm paths one Horner a msm() call and no double, and on "msm"
+     34 adds a curve
   9. the operator loop through the port's entry points (the "operator"
      path): `python -m zkrollup_torch.cli demo-rollup` in-process on the
      card with phase 3's key cached in a temporary --keys-dir (the
@@ -98,7 +112,8 @@ list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
 
 With --ab, phases 0 and 1 only, then the point kernels of PROVE_SHAPES
-and SETUP_SHAPES of this checkout against those built from each CSRC
+and SETUP_SHAPES, the doubles and the Horner kernels (where CSRC has
+them) of this checkout against those built from each CSRC
 directory (another commit's zkrollup_torch/csrc unpacked with `git
 archive`, or an edited copy of this one's), on phase 2's operands and on
 one proof's own,
@@ -144,6 +159,10 @@ KERNELS = {
     "g2_add": (_CSRC + "g2.cu", _PC2 + "288"),
     "g1_double": (_CSRC + "g1.cu", _PC + "510"),
     "g2_double": (_CSRC + "g2.cu", _PC2 + "310"),
+    # the device Horner of the reference's msm: a fori_loop of the double
+    # and add kernels on one point, one launch here
+    "g1_horner": (_CSRC + "g1.cu", "zkrollup/msm/msm.py:651"),
+    "g2_horner": (_CSRC + "g2.cu", "zkrollup/msm/msm.py:651"),
     "g1_madd": (_CSRC + "g1.cu", _PC + "498"),
     "g2_madd": (_CSRC + "g2.cu", _PC2 + "299"),
     "g1_add_nd": (_CSRC + "g1.cu", _PC + "492"),
@@ -161,15 +180,15 @@ PATHS = {
     "setup": ("mont_mul[fq]", "g1_madd", "g2_madd"),
     "prove": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
               "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
-    "msm": ("g1_madd", "g2_madd", "g1_double", "g2_double", "g1_add",
+    "msm": ("g1_madd", "g2_madd", "g1_horner", "g2_horner", "g1_add",
             "g2_add"),
     "msm_trees": ("mont_mul[fq]", "g1_add", "g2_add", "g1_add_z01",
-                  "g2_add_z01", "g1_madd", "g1_double", "g2_double"),
+                  "g2_add_z01", "g1_madd", "g1_horner", "g2_horner"),
     "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                   "g1_add_z01", "g1_add", "g2_add_z01", "g2_add"),
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
               "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi"),
-    "curve": ("g1_add_nd",),
+    "curve": ("g1_add_nd", "g1_double"),
     # phase 9: the operator loop's proofs (demo-rollup, the daemon, the
     # HTTP service) with phase 3's key; the withdraw circuit's setup and
     # proofs
@@ -188,7 +207,11 @@ HBM_BYTES_PER_S = 3.35e12          # device memory rate (NVIDIA data sheet)
 # Guide, arithmetic instruction throughput, compute capability 9.0), 132
 # SMs, 1.98 GHz maximum boost clock; the same Guide gives 64 for 32-bit
 # integer add, shift and logic
-INT_MULS_PER_S = 64 * 132 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT_MULS_PER_S = 64 * 132 * CLOCK_HZ
+# one warp on an SM sub-partition, which issues 16 multiplies a clock:
+# one warp-wide multiply every 2 clocks (the latency bound of a chain)
+WARP_MUL_CLOCKS = 2
 # 32-bit floating-point multiply: 128 per clock per SM (the same table; the
 # data sheet's 67 TFLOP/s counts a multiply-add as two)
 FP32_MULS_PER_S = 128 * 132 * 1.98e9
@@ -259,21 +282,38 @@ SETUP_LIMITS = {"g1_madd": (32, 32), "g2_madd": (32, 32),
 # lanes a warp holds: one thread a G1 lane, two a G2 lane (thread pairs)
 WARP_LANES = {"g1": 32, "g2": 16}
 VOTE_CASES = ("one_p_plus_p", "inf_plus_inf", "ragged_33", "ragged_1025")
-# kernel entries with launch bounds of 128 threads and this many blocks an
-# SM (csrc/g1.cu, csrc/points.cuh's PAIR_MIN_BLOCKS); phase 1 fails if one
-# of them is missing from the ptxas report, spills, or takes more
-# registers than that many blocks leave
-MIN_BLOCKS = {"g1_add_kernel": 3, "g1_madd_nd_kernel": 4,
-              "g1_madd_kernel": 3, "jac_add_pair_kernel": 3,
-              "jac_madd_nd_pair_kernel": 3, "jac_madd_pair_kernel": 3}
-# ptxas registers of the kernels built before g1_madd and g2_madd moved
-# onto FqCall and thread pairs (CUDA 12.8, sm_90a), which that move must not
+# kernel entries with launch bounds of (threads a block, blocks an SM)
+# (csrc/g1.cu, csrc/points.cuh's PAIR_MIN_BLOCKS; the Horner kernels one
+# warp and no minimum); phase 1 fails if one of them is missing from the
+# ptxas report, spills, or takes more registers than those blocks leave
+LAUNCH_BOUNDS = {"g1_add_kernel": (128, 3), "g1_madd_nd_kernel": (128, 4),
+                 "g1_madd_kernel": (128, 3), "jac_add_pair_kernel": (128, 3),
+                 "jac_madd_nd_pair_kernel": (128, 3),
+                 "jac_madd_pair_kernel": (128, 3),
+                 "jac_double_pair_kernel": (128, 3),
+                 "g1_horner_kernel": (32, 1), "g2_horner_kernel": (32, 1)}
+# ptxas registers of the kernels built before the unified add was factored
+# out of its lane for the Horner (CUDA 12.8, sm_90a), which that must not
 # change; phase 1 logs them beside this build's
 EARLIER_REGS = {"g1_add_kernel": 149, "g1_madd_nd_kernel": 124,
-                "jac_add_pair_kernel": 168, "jac_madd_nd_pair_kernel": 150}
+                "g1_madd_kernel": 139, "jac_add_pair_kernel": 168,
+                "jac_madd_nd_pair_kernel": 150, "jac_madd_pair_kernel": 168}
 # the g1_madd_nd launch of a proof whose operands phase 4 keeps: the middle
 # step of the scan leg's 127 (the accumulator a sum of 64 points)
 MADD_ND_KEPT = 63
+# the Horner of one msm() over 256-bit scalars at c = 12: 22 windows
+HORNER_W, HORNER_C = 22, 12
+# launches on the msm paths (phase 8): one Horner a msm() call (the "msm"
+# path one a curve, "msm_trees" three: its msm_glv calls combine on the
+# host), no double; on "msm" the scan route's 34 adds a curve (the halving
+# reduce, the chunk-total scan, the boundary add and the table-end
+# subtraction), where the one-lane Horner route added 22 more
+MSM_LIMITS = {
+    "msm": {"g1_horner": (1, 1), "g2_horner": (1, 1), "g1_double": (0, 0),
+            "g2_double": (0, 0), "g1_add": (34, 34), "g2_add": (34, 34)},
+    "msm_trees": {"g1_horner": (3, 3), "g2_horner": (3, 3),
+                  "g1_double": (0, 0), "g2_double": (0, 0)},
+}
 
 
 def bound(products: float, nbytes: float):
@@ -288,6 +328,25 @@ def lane_bound(name: str, lanes: int, doubling_lanes: int = 0):
     add, dbl, values = PER_LANE[name.split("[")[0]]
     return bound(add * lanes + dbl * doubling_lanes,
                  values * VALUE_BYTES * lanes)
+
+
+def chain_ms(products: float) -> float:
+    """The latency bound of a chain of `products` dependent Fq products a
+    thread on one warp: 264 multiplies each, one every WARP_MUL_CLOCKS."""
+    return products * MULS_PER_PRODUCT * WARP_MUL_CLOCKS / CLOCK_HZ * 1e3
+
+
+def horner_bounds(g: str, W: int, c: int, doubling_adds: int = 0):
+    """The Horner of W windows at c over curve g (W c doubles, W adds, the
+    add's doubling path on `doubling_adds` of them): ((bound_ms, bound_by)
+    of its products and bytes over the whole card, the latency bound of
+    its chain on one warp, a G2 chain halved over a thread pair)."""
+    dbl = PER_LANE[f"{g}_double"][0]
+    add, add_dbl, _ = PER_LANE[f"{g}_add"]
+    products = W * c * dbl + W * add + doubling_adds * add_dbl
+    values = (W + 1) * 3 * (2 if g == "g2" else 1)
+    return (bound(products, values * VALUE_BYTES),
+            chain_ms(products / (2 if g == "g2" else 1)))
 
 
 def alu_bound(op: str, n: int, reps: int):
@@ -335,11 +394,11 @@ def log_ptxas(ptxas: dict, prefix: str = "") -> None:
 
 
 def check_spill(ptxas: dict) -> None:
-    """Phase 1: every kernel of MIN_BLOCKS is in the report once, spills
+    """Phase 1: every kernel of LAUNCH_BOUNDS is in the report once, spills
     nothing and fits the blocks its launch bounds ask for; no called
     function spills."""
     bad = []
-    for name, blocks in MIN_BLOCKS.items():
+    for name, (threads, blocks) in LAUNCH_BOUNDS.items():
         found = [(e, v) for e, v in ptxas.items()
                  if f"{len(name)}{name}E" in e and v[0] is not None]
         if len(found) != 1:
@@ -347,13 +406,13 @@ def check_spill(ptxas: dict) -> None:
             continue
         (regs, spill, _), = (v for _, v in found)
         was = EARLIER_REGS.get(name)
-        log(f"  {name}: launch bounds (128, {blocks}), {regs} registers, "
-            f"{spill} bytes spill stores"
-            + ("" if was is None else f" (before g1_madd and g2_madd moved:"
-               f" {was} registers, {'same' if was == regs else 'CHANGED'})"))
-        if spill or resident_warps(regs) < 4 * blocks:
+        log(f"  {name}: launch bounds ({threads}, {blocks}), {regs} "
+            f"registers, {spill} bytes spill stores"
+            + ("" if was is None else f" (before the add was factored: "
+               f"{was} registers, {'same' if was == regs else 'CHANGED'})"))
+        if spill or resident_warps(regs) < threads // 32 * blocks:
             bad.append(f"{name}: {regs} registers, {spill} bytes spill "
-                       f"stores at (128, {blocks})")
+                       f"stores at ({threads}, {blocks})")
     bad += [f"{e}: {v[1]} bytes spill stores" for e, v in ptxas.items()
             if v[0] is None and v[1]]
     if bad:
@@ -504,25 +563,179 @@ def check_kernels(dev, results):
                    cuda_ms(lambda: plain(curve, *args), 2),
                    lane_bound(name, n, n_dbl))
 
-        # the double as the MSM's Horner launches it, on one lane: an
-        # infinity lane (2) and a finite one (5); timed on the finite lane
-        name = f"{curve.name}_double"
-        pa = ops[name][2][0]
-        for k in (2, 5):
-            one = curve.map(lambda a: a[k:k + 1].contiguous(), pa)
-            if max_abs_err(curve.leaves(cuda_curve.double(curve, one)),
-                           curve.leaves(cuda_curve.double_plain(curve,
-                                                                one))):
-                raise AssertionError(f"{name}: the one-lane kernel disagrees "
-                                     f"with its plain version (lane {k})")
-        ms1 = cuda_ms(lambda: cuda_curve.double(curve, one), 264)
-        results[name]["one_lane_ms"] = ms1
-        log(f"  {name:13s} one lane (infinity and finite): max_abs_err 0  "
-            f"kernel {ms1:.4f} ms")
-
+        check_double(curve, ops[f"{curve.name}_double"][2], results)
         for name in (*PROVE_SHAPES, *SETUP_SHAPES):
             if name.startswith(curve.name + "_"):
                 check_widths(curve, name, *ops[name][:3], results)
+        check_horner(curve, ops[f"{curve.name}_add"][2][0], results)
+
+
+def check_double(curve, args, results):
+    """Phase 2, the double beyond 2^16 lanes (g1_double; g2_double on
+    thread pairs): bit for bit against double_plain on ragged launches of
+    RAGGED lanes at two offsets and of 1,025 lanes, and on one lane (an
+    infinity lane and a finite one); timed on one lane beside its latency
+    bound (one warp's chain: 7 Fq products over G1, 8 a thread of a G2
+    pair)."""
+    from zkrollup_torch.curve import cuda_curve
+    name = f"{curve.name}_double"
+    n = curve.leaves(args[0])[0].shape[0]
+    take = lambda m, off=0: take_lanes(curve, args, m, off)[0]
+    subs = [(m, off) for m in RAGGED for off in (0, n - 7)] + [(1025, 0)]
+    subs += [(1, 2), (1, 5)]
+    bad = [(m, off) for m, off in subs if max_abs_err(
+        curve.leaves(cuda_curve.double(curve, *take(m, off))),
+        curve.leaves(cuda_curve.double_plain(curve, *take(m, off))))]
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at (lanes, offset) {bad}")
+    one = take(1, 5)
+    ms1 = cuda_ms(lambda: cuda_curve.double(curve, *one), 264)
+    products = PER_LANE[name][0] / (2 if curve.name == "g2" else 1)
+    results[name].update(one_lane_ms=ms1,
+                         one_lane_latency_bound_ms=chain_ms(products))
+    log(f"  {name:13s} {RAGGED} lanes at offsets 0 and {n - 7}, 1025 lanes, "
+        f"one lane (infinity and finite): max_abs_err 0; one lane "
+        f"{ms1:.4f} ms, latency bound {chain_ms(products):.4f} ms")
+
+
+def horner_loop(curve, wsum, c: int):
+    """The MSM's Horner as msm() ran it before the Horner kernels, the
+    baseline phases 2 and 5 hold and time them against: from infinity, for
+    each window from the top, c double launches and one add launch on one
+    lane (286 launches a curve at c = 12, 22 windows)."""
+    from zkrollup_torch.curve import cuda_curve
+    n_windows = curve.leaves(wsum)[0].shape[0]
+    res = curve.infinity((1,), curve.leaves(wsum)[0].device)
+    for w in range(n_windows - 1, -1, -1):
+        for _ in range(c):
+            res = cuda_curve.double(curve, res)
+        res = cuda_curve.add(curve, res, curve.map(
+            lambda a: a[w:w + 1].contiguous(), wsum))
+    return curve.map(lambda a: a[0], res)
+
+
+def horner_plain_host(curve, wsum, c: int):
+    """horner_plain on the CPU over copies of wsum, the result back on
+    wsum's device: the same integer arithmetic as on the card, where each
+    of its ~20 torch ops a product is a launch."""
+    from zkrollup_torch.curve import cuda_curve
+    dev = curve.leaves(wsum)[0].device
+    out = cuda_curve.horner_plain(curve, curve.map(lambda a: a.cpu(), wsum),
+                                  c)
+    return curve.map(lambda a: a.to(dev), out)
+
+
+def horner_cases(curve, p) -> dict:
+    """Phase 2's window sums for the Horner kernels, {label: (wsum, c,
+    adds on the doubling path)}, from rows of p (phase 2's Jacobian
+    operand: Z != 1, rows 5.. finite and distinct, row 4 infinity): the
+    msm's W = 22 at c = 12, W = 1 and 2, the GLV tables' W = 11, small c,
+    infinity windows at the top, the middle and the bottom and every
+    window infinity, W_1 = 2^c res (the add's doubling path; W_1 in other
+    Jacobian limbs than res), W_1 = -(2^c res) and, as the last window,
+    W_0 = -(2^c res) (P + (-P): Z zeroed alone)."""
+    import torch
+    from zkrollup_torch.curve import cuda_curve
+    dev = curve.leaves(p)[0].device
+    rows = lambda *idx: curve.map(
+        lambda a: a.index_select(0, torch.tensor(idx, device=dev)), p)
+    cat = lambda *pts: curve.map(lambda *a: torch.cat(a).contiguous(), *pts)
+
+    def times_2c(pt, c):
+        for _ in range(c):
+            pt = cuda_curve.double_plain(curve, pt)
+        return pt
+
+    c = HORNER_C
+    twice = times_2c(rows(5), c)
+    # 2^c res again, other limbs: (2^c res - r) + r
+    other = cuda_curve.add_plain(curve, cuda_curve.add_plain(
+        curve, twice, curve.neg(rows(8))), rows(8))
+    inf = lambda k: rows(*([4] * k))
+    return {
+        f"W={HORNER_W}, c={c}": (rows(*range(5, 5 + HORNER_W)), c, 0),
+        f"W=1, c={c}": (rows(5), c, 0),
+        f"W=2, c={c}": (rows(5, 6), c, 0),
+        f"W=11, c={c} (GLV tables)": (rows(*range(5, 16)), c, 0),
+        "W=9, c=1": (rows(*range(20, 29)), 1, 0),
+        "W=6, c=3": (rows(*range(30, 36)), 3, 0),
+        "W=22, c=2, windows 0, 10, 20 and 21 infinity": (
+            cat(inf(1), rows(*range(40, 49)), inf(1), rows(*range(50, 59)),
+                inf(2)), 2, 0),
+        f"W=3, c={c}, every window infinity": (inf(3), c, 0),
+        f"W=3, c={c}, W_1 = 2^c res (doubling path)": (
+            cat(rows(7), other, rows(5)), c, 1),
+        f"W=3, c={c}, W_1 = -(2^c res)": (
+            cat(rows(7), curve.neg(twice), rows(5)), c, 0),
+        f"W=2, c={c}, W_0 = -(2^c res)": (cat(curve.neg(twice), rows(5)),
+                                          c, 0),
+    }
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of one call, from a synchronize to the
+    synchronize after it."""
+    import statistics
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def check_horner(curve, p, results):
+    """Phase 2, the Horner kernel of `curve` (g1_horner, g2_horner): on
+    every case of horner_cases, bit for bit as Jacobian limbs against
+    horner_plain and against the one-lane route (horner_loop). The msm's
+    case (W = 22, c = 12) runs horner_plain on the card, once, timed; the
+    others run it on the CPU (horner_plain_host). Both routes timed there:
+    device ms (cuda_ms) and wall ms (wall_ms), beside the bound over the
+    card and the latency bound of the chain on one warp."""
+    from zkrollup_torch.curve import cuda_curve
+    import torch
+    g = curve.name
+    name = f"{g}_horner"
+    err = 0
+    for label, (wsum, c, n_dbl) in horner_cases(curve, p).items():
+        got = curve.leaves(cuda_curve.horner(curve, wsum, c))
+        loop = curve.leaves(horner_loop(curve, wsum, c))
+        main = label == f"W={HORNER_W}, c={HORNER_C}"
+        if main:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = curve.leaves(cuda_curve.horner_plain(curve, wsum, c))
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            timed = (wsum, c)
+        else:
+            plain = curve.leaves(horner_plain_host(curve, wsum, c))
+        e_plain, e_loop = max_abs_err(got, plain), max_abs_err(got, loop)
+        log(f"  {name:13s} {label}: max_abs_err {e_plain} against "
+            f"horner_plain, {e_loop} against the one-lane route")
+        if e_plain or e_loop:
+            raise AssertionError(f"{name}: kernel disagrees with horner_plain"
+                                 f" or the one-lane route ({label})")
+        err = max(err, e_plain)
+    wsum, c = timed
+    ms = cuda_ms(lambda: cuda_curve.horner(curve, wsum, c), 20)
+    loop_ms = cuda_ms(lambda: horner_loop(curve, wsum, c), 2)
+    wall = wall_ms(lambda: cuda_curve.horner(curve, wsum, c))
+    loop_wall = wall_ms(lambda: horner_loop(curve, wsum, c))
+    bnd, latency = horner_bounds(g, HORNER_W, HORNER_C)
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": None, "latency_bound_ms": latency,
+                     "wall_ms": wall, "loop_ms": loop_ms,
+                     "loop_wall_ms": loop_wall}
+    log(f"  {name:13s} W={HORNER_W}, c={HORNER_C}: kernel {ms:.4f} ms device"
+        f", {wall:.4f} ms wall; the one-lane route {loop_ms:.4f} ms device, "
+        f"{loop_wall:.4f} ms wall; plain {plain_ms:.1f} ms; latency bound "
+        f"{latency:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
 
 
 def transform_bound(batch: int, log_n: int, products: int = 0,
@@ -1378,14 +1591,17 @@ def msm_phase(dev, pk, witness, launches):
     """Phase 5: the MSMs over the real a and b2 tables (the a table holds
     duplicate points and infinity rows) against the native engine's
     Pippenger: msm() with the default strategy ("msm" path), then the
-    other three strategies and msm_glv ("msm_trees" path)."""
+    other three strategies and msm_glv ("msm_trees" path); then, per
+    curve, the Horner kernel against the one-lane route (horner_loop) on
+    the tables' window sums, limb for limb, and msm() timed through
+    each."""
     import numpy as np
     import torch
     from zkrollup_torch import kernels
     from zkrollup_torch.curve import g1, g2
     from zkrollup_torch.fields import limbs as L
     from zkrollup_torch.msm.glv import msm_glv
-    from zkrollup_torch.msm.msm import msm
+    from zkrollup_torch.msm.msm import msm, window_sums
     from zkrollup_torch.native import engine
     from zkrollup_torch.ref.bn254 import R as FR_MOD
 
@@ -1445,6 +1661,29 @@ def msm_phase(dev, pk, witness, launches):
             f"msm_glv(a_g1, c=12, tree={tree!r})", "g1",
             lambda: msm_glv(a_tbl, sc, c=12, tree=tree))
     count_path(launches, "msm_trees")
+
+    # the Horner's two routes on these tables: on one set of window sums,
+    # the kernel's limbs against the one-lane route's; then msm() (window
+    # sums, one Horner launch) against the window sums and horner_loop,
+    # in turns, each equal to the native engine
+    for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
+        wsum, c = window_sums(curve, tbl, sc, c=12)
+        if max_abs_err(curve.leaves(curve.horner(wsum, c)),
+                       curve.leaves(horner_loop(curve, wsum, c))):
+            raise AssertionError(f"{name}_horner differs from the one-lane "
+                                 "route on the key's window sums")
+        routes = {"horner": lambda: msm(curve, tbl, sc, c=12),
+                  "loop": lambda: horner_loop(
+                      curve, *window_sums(curve, tbl, sc, c=12))}
+        secs = {r: [] for r in routes}
+        for r in ("horner", "loop", "loop", "horner") * 2:
+            secs[r].append(timed(f"msm({name.upper()}), {r} route", name,
+                                 routes[r]))
+        times[f"msm_{name}_routes"] = secs
+        log(f"  msm({name.upper()}) on the key's table, the Horner kernel's "
+            f"limbs equal the one-lane route's on its window sums; seconds, "
+            f"Horner kernel " + " ".join(f"{t:.4f}" for t in secs["horner"])
+            + ", one-lane route " + " ".join(f"{t:.4f}" for t in secs["loop"]))
     return times
 
 
@@ -1500,9 +1739,10 @@ def tools_phase(dev, results, launches):
 
 
 def curve_path(dev, launches):
-    """Phase 7, the "curve" path: JacobianCurve.add_nd over G1, the public
-    method that reaches g1_add_nd, on distinct lanes, P + (-P), infinities
-    and non-unit Z, against zkrollup_torch.ref."""
+    """Phase 7, the "curve" path: JacobianCurve.add_nd and double over G1,
+    the public methods that reach g1_add_nd and g1_double, on distinct
+    lanes, P + (-P), infinities and non-unit Z, against
+    zkrollup_torch.ref."""
     from zkrollup_torch import kernels
     from zkrollup_torch.curve import g1
     from zkrollup_torch.ref import bn254 as ref
@@ -1517,13 +1757,17 @@ def curve_path(dev, launches):
     s1 = g1.G1.add(jac(p), jac(q))          # non-unit Z
     s2 = g1.G1.add(jac(q), jac(q))
     kernels.reset_launches()
-    got = [g1.G1.add_nd(jac(p), jac(q)), g1.G1.add_nd(s1, s2)]
+    got = [g1.G1.add_nd(jac(p), jac(q)), g1.G1.add_nd(s1, s2),
+           g1.G1.double(s1)]
     count_path(launches, "curve")
     sums = [ref.g1_add(a, b) for a, b in zip(p, q)]
-    want = [sums, [ref.g1_add(a, ref.g1_add(b, b)) for a, b in zip(sums, q)]]
+    want = [sums, [ref.g1_add(a, ref.g1_add(b, b)) for a, b in zip(sums, q)],
+            [ref.g1_add(a, a) for a in sums]]
     if [g1.to_affine_host(g) for g in got] != want:
-        raise AssertionError("G1.add_nd differs from zkrollup_torch.ref")
-    log(f"  G1.add_nd on {dev} (g1_add_nd), Z = 1 and non-unit Z: equals "
+        raise AssertionError("G1.add_nd or G1.double differs from "
+                             "zkrollup_torch.ref")
+    log(f"  G1.add_nd on {dev} (g1_add_nd), Z = 1 and non-unit Z, and "
+        "G1.double (g1_double), non-unit Z and infinity: equal "
         "zkrollup_torch.ref")
 
 
@@ -1877,22 +2121,27 @@ def check_paths(launches, paths):
 
 
 def ab_run(dev, bases: list, keep) -> list:
-    """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES of this
-    checkout against those built from each csrc/ directory of `bases`. Every unit they live
+    """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES, the
+    doubles and the Horner kernels of this checkout against those built
+    from each csrc/ directory of `bases`. Every unit they live
     in (kernels.UNITS) is built from each base, one nvcc each, all started
     together with this checkout's flags into a temporary directory, and
-    bound through the same wrappers (the C signatures do not change);
+    bound through the same wrappers (the C signatures do not change; a
+    base without a Horner entry skips its rows);
     `keep()`, called while they build, gives one proof's operands
     (keep_prove_operands). For each kernel, at 2^16 lanes with phase 2's
     special lanes, at widths_of (PROVE_SHAPES and, over G1, WAVE_LANES;
     SETUP_SHAPES and MSM_MADD_LANES), on the proof's operands of g1_add's
-    two widest launches and of one g1_madd_nd launch, and on one lane: every build bit for bit against the plain
+    two widest launches and of one g1_madd_nd launch, and on one lane (the
+    doubles at 2^16 lanes and one lane; the Horner kernels on phase 2's
+    W = 22, c = 12 window sums): every build bit for bit against the plain
     version, then timed in turns, base, this, this, base (cuda_ms, 20
     calls, 264 on one lane). The fields unit is built from each base too,
     for ab_fields; a fields.cu with the earlier C interface is bound as a
     StageRoute."""
     import tempfile
     from zkrollup_torch import kernels
+    from zkrollup_torch.curve import cuda_curve
     from zkrollup_torch.curve.g1 import G1
     from zkrollup_torch.curve.g2 import G2
 
@@ -1954,14 +2203,27 @@ def ab_run(dev, bases: list, keep) -> list:
             for sub in proof_ops.get(name, []):
                 cases.append((name, curve.leaves(sub[0])[0].shape[0],
                               "the proof's", curve, fn, plain, sub))
+        for g, curve in curves.items():
+            fn, plain, args, _ = ops[g][f"{g}_double"]
+            for m in (1 << 16, 1):
+                sub, _ = take_lanes(curve, args, m, 5 if m == 1 else 0)
+                cases.append((f"{g}_double", m, "phase 2", curve, fn, plain,
+                              sub))
+            wsum, c, _ = horner_cases(curve, ops[g][f"{g}_add"][2][0])[
+                f"W={HORNER_W}, c={HORNER_C}"]
+            cases.append((f"{g}_horner", 1, "phase 2", curve,
+                          cuda_curve.horner, horner_plain_host, (wsum, c)))
 
         own = dict(libs)
         runs = [{"base": base, "rows": []} for base in bases]
         try:
             for name, m, what, curve, fn, plain, sub in cases:
-                unit = kernels._SIGS[name][0]
+                unit, sym, _ = kernels._SIGS[name]
                 want = curve.leaves(plain(curve, *sub))
                 for run, bound_libs in zip(runs, builds):
+                    if not hasattr(bound_libs[unit], sym):
+                        log(f"  {name}: base {run['base']} has no {sym}")
+                        continue
                     pair = {"base": bound_libs[unit], "this": own[unit]}
                     ms = {"base": [], "this": []}
                     for b in ("base", "this", "this", "base"):
@@ -2196,8 +2458,10 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", metavar="CSRC", action="append", default=[],
-                    help="time the point kernels of PROVE_SHAPES and the "
-                         "field route against those built from CSRC")
+                    help="time the point kernels of PROVE_SHAPES and "
+                         "SETUP_SHAPES, the doubles, the Horner kernels "
+                         "and the field route against those built from "
+                         "CSRC")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "zkrollup_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -2277,6 +2541,8 @@ def main() -> int:
     launch_table(launches, earlier)
     check_widest("prove", launches["prove"], PROVE_SHAPES)
     check_prove_limits(launches)
+    for path, limits in MSM_LIMITS.items():
+        check_limits(path, launches[path], limits)
     check_paths(launches, earlier)
 
     log("phase 9: the operator loop, BatchProcessTx(2, 6) and withdraw")

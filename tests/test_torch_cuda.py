@@ -2,9 +2,12 @@
 
 Each kernel wrapper against its plain PyTorch version on the same CUDA
 tensors, bit for bit (the NTT pass with every prologue and epilogue, the
-lazy-sum fold, the gathered mont_mul, and the integer-unit kernels of
-tools/profile_alu.py too); the NTT, the quotient, the MSM window sums and
-the general MSM on the card against the same functions on the CPU; the
+lazy-sum fold, the gathered mont_mul, the doubles on ragged launches, the
+Horner kernels on its edge cases and against the route of one double or
+add launch a step, and the integer-unit kernels of tools/profile_alu.py
+too); the NTT, the quotient, the MSM window sums and the general MSM on
+the card against the same functions on the CPU, one Horner launch and no
+double a msm() call; the
 bucket strategies and the GLV MSM against the native engine; the G2
 point-kernel check; a small setup on the card against the native engine's;
 TxProver.prove_batch against prove_prepared; the BatchProcessTx(2,6)
@@ -231,8 +234,7 @@ def test_point_kernels_match_plain(cuda_device, name):
         got, want = (curve.leaves(f(curve, pt))
                      for f in (cuda_curve.double, cuda_curve.double_plain))
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # the double on one lane, as the MSM's Horner launches it: infinity
-    # (lane 2) and a finite point (lane 5)
+    # the double on one lane: infinity (lane 2) and a finite point (lane 5)
     for k in (2, 5):
         one = curve.map(lambda a: a[k:k + 1].contiguous(), p)
         got, want = (curve.leaves(f(curve, one))
@@ -254,19 +256,68 @@ def test_point_kernels_match_plain(cuda_device, name):
     got, want = (curve.leaves(f(curve, pm, qm))
                  for f in (cuda_curve.madd_nd, cuda_curve.madd_nd_plain))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # the add and the no-double mixed add (two threads a lane over G2) at
-    # odd and tiny lane counts, where a ragged edge cuts a warp: the lanes
-    # above, repeated
+    # the add, the no-double mixed add and the double (two threads a lane
+    # over G2) at odd and tiny lane counts, where a ragged edge cuts a
+    # warp: the lanes above, repeated
     for m in (1, 22, 33, 1025):
         for f, plain, args in ((cuda_curve.add, cuda_curve.add_plain, (p, q)),
                                (cuda_curve.madd_nd, cuda_curve.madd_nd_plain,
-                                (pm, qm))):
+                                (pm, qm)),
+                               (cuda_curve.double, cuda_curve.double_plain,
+                                (p,))):
             n = curve.leaves(args[0])[0].shape[0]
             idx = torch.arange(m, device=cuda_device) % n
             sub = [curve.map(lambda a: a.index_select(0, idx), t)
                    for t in args]
             got, want = (curve.leaves(g(curve, *sub)) for g in (f, plain))
             assert all(torch.equal(a, b) for a, b in zip(got, want)), m
+
+
+def _horner_cases(curve, p):
+    """Window sums for the Horner kernels, {label: (wsum, c)}, from p
+    (Z != 1; lanes 5.. distinct, lane 4 infinity): W = 1, W = 3 at small
+    c, infinity windows at the top, the middle and the bottom, every
+    window infinity, W_1 = 2^c res in other limbs (the add's doubling
+    path), W_1 = -(2^c res) and, last, W_0 = -(2^c res)."""
+    rows = lambda *idx: curve.map(lambda a: a[list(idx)].contiguous(), p)
+    cat = lambda *pts: curve.map(lambda *a: torch.cat(a).contiguous(), *pts)
+    c = 5
+    twice = rows(5)
+    for _ in range(c):
+        twice = cuda_curve.double_plain(curve, twice)
+    other = cuda_curve.add_plain(curve, cuda_curve.add_plain(
+        curve, twice, curve.neg(rows(8))), rows(8))
+    return {
+        "W=1": (rows(5), c),
+        "W=3, c=1": (rows(5, 6, 7), 1),
+        "infinity windows": (rows(4, 5, 6, 4, 7, 4, 4), 2),
+        "every window infinity": (rows(4, 4), c),
+        "doubling path": (cat(rows(7), other, rows(5)), c),
+        "P + (-P)": (cat(rows(7), curve.neg(twice), rows(5)), c),
+        "P + (-P) last": (cat(curve.neg(twice), rows(5)), c),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_horner_matches_plain(cuda_device, name):
+    """g1_horner and g2_horner against horner_plain on the edge cases,
+    Jacobian limbs, and against c double and one add launch a window (the
+    route msm took before the Horner kernels)."""
+    curve, p, _ = _point_operands(name, cuda_device)
+    for label, (wsum, c) in _horner_cases(curve, p).items():
+        got = curve.leaves(cuda_curve.horner(curve, wsum, c))
+        want = curve.leaves(cuda_curve.horner_plain(
+            curve, curve.map(lambda a: a.cpu(), wsum), c))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), label
+        res = curve.infinity((1,), cuda_device)
+        for w in range(curve.leaves(wsum)[0].shape[0] - 1, -1, -1):
+            for _ in range(c):
+                res = cuda_curve.double(curve, res)
+            res = cuda_curve.add(curve, res, curve.map(
+                lambda a: a[w:w + 1].contiguous(), wsum))
+        assert all(torch.equal(a, b[0]) for a, b in
+                   zip(got, curve.leaves(res))), label
 
 
 VOTE_CASES = ["one_p_plus_p", "inf_plus_inf", "ragged_33", "ragged_1025"]
@@ -436,13 +487,18 @@ def _dup_table(curve, n, seed):
 @pytest.mark.parametrize("name", ["g1", "g2"])
 def test_general_msm_on_cuda_matches_cpu(cuda_device, name):
     """msm(distinct=False) over a table with duplicate points: the madd
-    kernels in the scan leg, the double and add kernels in the Horner."""
+    kernels in the scan leg, one launch of the Horner kernel and no
+    double."""
+    from zkrollup_torch import kernels
     curve = g1.G1 if name == "g1" else g2.G2
     (x, y, inf), sc = _dup_table(curve, 200, 11)
     on = lambda v: curve.F.from_leaves([a.to(cuda_device)
                                         for a in curve.F.leaves(v)])
+    kernels.reset_launches()
     got = msm.msm(curve, (on(x), on(y), inf.to(cuda_device)),
                   sc.to(cuda_device), c=6)
+    assert kernels.LAUNCHES[f"{name}_horner"] == 1
+    assert kernels.LAUNCHES["g1_double"] == kernels.LAUNCHES["g2_double"] == 0
     want = msm.msm(curve, (x, y, inf), sc, c=6)
     assert all(torch.equal(a.cpu(), b)
                for a, b in zip(curve.leaves(got), curve.leaves(want)))

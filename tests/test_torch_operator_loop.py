@@ -15,6 +15,7 @@ import contextlib
 import io
 import json
 import shutil
+import threading
 import urllib.error
 import urllib.request
 
@@ -37,7 +38,8 @@ from zkrollup_torch.cli import main as cli
 from zkrollup_torch.config import RollupConfig
 from zkrollup_torch.groth16.keys import r1cs_digest
 from zkrollup_torch.operator.batchd import BatchDaemon
-from zkrollup_torch.operator.prover import TxProver, WithdrawProver
+from zkrollup_torch.operator.prover import (PreparedBatch, TxProver,
+                                           WithdrawProver)
 from zkrollup_torch.operator.queue import TxQueue
 from zkrollup_torch.operator.service import OperatorApp, start_app
 from zkrollup_torch.operator.state import OperatorState
@@ -183,6 +185,68 @@ def test_pipeline_matches_reference(key):
     assert got["a"][3] == _wei(156) and got["a"][4] == 4
     assert got["b"][3] == _wei(140) and got["fees"] == _wei(4)
     assert got["chain_root"] == got["operator_root"]
+
+
+class _SettleFirstQueue(TxQueue):
+    """A queue whose read of batch 2 waits until batch 1 has settled: the
+    order in which a prover faster than the witness stage runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.settled = threading.Event()
+        self.reads = 0
+
+    def peek_batch(self, *args, **kwargs):
+        self.reads += 1
+        if self.reads == 2:
+            assert self.settled.wait(30)
+        return super().peek_batch(*args, **kwargs)
+
+    def mark_processed(self, n):
+        super().mark_processed(n)
+        self.settled.set()
+
+
+class _RecordingProver:
+    """prepare_batch and prove_prepared without a circuit: records the
+    nonces of each batch it is given."""
+
+    def __init__(self):
+        self.batches = []
+
+    def prepare_batch(self, tree, txs):
+        self.batches.append([t.nonce for t in txs])
+        return PreparedBatch(txs=txs, witness=[], public_signals=[],
+                             final_tree=tree)
+
+    def prove_prepared(self, prep):
+        return object()
+
+
+class _NoChain:
+    def roll_up(self, proof, public_signals):
+        pass
+
+    def load_tree(self):
+        return None
+
+    def apply_rollup_batch(self, final_tree):
+        pass
+
+
+def test_pipeline_reads_ahead_by_queue_index():
+    """run_pipeline takes every queued tx once and in order when batch i
+    settles before the witness stage reads batch i+1: it reads by queue
+    index, not by an offset from the processed cursor that settling
+    moves."""
+    queue, prover, chain = _SettleFirstQueue(), _RecordingProver(), _NoChain()
+    for nonce in range(1, 9):
+        queue.push(Transaction(0, 1, WEI, WEI // 100, nonce))
+    daemon = BatchDaemon(CFG, chain, queue, prover, chain)
+    assert daemon.run_pipeline(max_batches=4) == 4
+    assert prover.batches == [[1, 2], [3, 4], [5, 6], [7, 8]]
+    assert queue.pending_count() == 0
+    assert daemon.metrics.txs_processed == 8
 
 
 @pytest.mark.parametrize("pkg", ["zkrollup_torch", "zkrollup"])

@@ -1,18 +1,20 @@
 // Jacobian point formulas over Fq (G1) or Fq2 (G2) for the zkrollup_torch
 // CUDA kernels: one lane = one point (double) or one point pair (adds),
 // branch-free but for the warp votes of the doubling path: the add's over
-// FqCall (jac_add_lane) and the mixed add's over every type
-// (jac_madd_lane).
+// FqCall (jac_add_lane) and in the Horner (horner_lane), the mixed add's
+// over every type (jac_madd_lane).
 //
 // Replace the point kernels of zkrollup/curve/pallas_curve.py (_add_kernel,
 // _add_nd_kernel, _add_z01_kernel, _make_madd_kernel(False),
 // _make_madd_kernel(True), _double_kernel) and their Fq2 instantiations in
 // zkrollup/curve/pallas_curve_g2.py (_make_add_kernel(False/True),
-// _make_madd_kernel, _double_kernel). The add tail (add_xy), the Jacobian
-// add path, the doubling formula (dbl_xy) and the closing selects
-// (inf_selects) are each written once and shared, so the kernels cannot
-// drift apart. The lane functions are host/device so the formulas compile
-// for a CPU as well as for the GPU.
+// _make_madd_kernel, _double_kernel); horner_lane replaces the device
+// Horner of zkrollup/msm/msm.py:msm, a loop over those double and add
+// kernels on one point. The add tail (add_xy), the Jacobian
+// add path, the doubling formula (dbl_xy), the unified add (jac_add) and
+// the closing selects (inf_selects) are each written once and shared, so
+// the kernels cannot drift apart. The lane functions are host/device so
+// the formulas compile for a CPU as well as for the GPU.
 #pragma once
 
 #include <cstdint>
@@ -69,14 +71,15 @@ ZKT_HD void jac_double(E& X3, E& Y3, E& Z3, const E& X, const E& Y,
 
 // One lane of the double kernel: in X Y Z, out X3 Y3 Z3.
 template <class E>
-ZKT_HD void jac_double_lane(const PointArgs& args, int64_t i) {
+ZKT_HD void jac_double_lane(const PointArgs& args, int64_t i,
+                            bool live = true) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X = P::load(args.in + 0 * K, i), Y = P::load(args.in + 1 * K, i),
           Z = P::load(args.in + 2 * K, i);
   E X3, Y3, Z3;
   jac_double(X3, Y3, Z3, X, Y, Z);
-  store3(args, i, true, X3, Y3, Z3);
+  store3(args, i, live, X3, Y3, Z3);
 }
 
 // The tail every add shares: from H = U2 - U1 and R = S2 - S1,
@@ -149,33 +152,28 @@ ZKT_HD bool any_in_warp(bool need) {
 }
 
 // Unified Jacobian add with the doubling path and the infinity and P + (-P)
-// masks (pallas_curve.py:_add_kernel). Infinity is Z = 0; on P + (-P) only
-// Z is zeroed, as in the Pallas kernel.
+// masks (pallas_curve.py:_add_kernel), in registers: the add path, the
+// doubling path, then the selects. Infinity is Z = 0; on P + (-P) only Z
+// is zeroed, as in the Pallas kernel. X3 Y3 Z3 must not alias an operand.
 //
 // The doubling's result survives the selects only where H = R = 0 with
 // neither operand infinite: where either is, the infinity selects
 // overwrite all three coordinates (infinity + infinity also has
-// H = R = 0). Over a VoteDoubling type a warp computes the doubling and
-// its selects only if one of its lanes is such a lane; every lane's
-// result is the same as when every lane computes it.
-template <class E>
-ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i,
-                         bool live = true) {
-  using P = Planes<E>;
-  constexpr int K = P::K;
-  const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
-          Z1 = P::load(args.in + 2 * K, i);
-  const E X2 = P::load(args.in + 3 * K, i), Y2 = P::load(args.in + 4 * K, i),
-          Z2 = P::load(args.in + 5 * K, i);
-  E X3, Y3, Z3, H, R;
+// H = R = 0). With VOTE a warp computes the doubling and its selects only
+// if one of its lanes is such a lane; every lane's result is the same as
+// when every lane computes it. Every thread of the warp must reach the
+// vote.
+template <class E, bool VOTE = VoteDoubling<E>::value>
+ZKT_HD void jac_add(E& X3, E& Y3, E& Z3, const E& X1, const E& Y1,
+                    const E& Z1, const E& X2, const E& Y2, const E& Z2) {
+  E H, R;
   jac_add_path(X3, Y3, Z3, H, R, X1, Y1, Z1, X2, Y2, Z2);
 
   const bool h_zero = H.is_zero(), r_zero = R.is_zero();
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool same = h_zero && r_zero;
   bool doubling = true;
-  if constexpr (VoteDoubling<E>::value)
-    doubling = any_in_warp(same && !p_inf && !q_inf);
+  if constexpr (VOTE) doubling = any_in_warp(same && !p_inf && !q_inf);
   if (doubling) {
     E dX, dY, dZ;
     jac_double(dX, dY, dZ, X1, Y1, Z1);
@@ -185,7 +183,63 @@ ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i,
   }
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
+}
+
+// One lane of the unified add: load, jac_add (voted over a VoteDoubling
+// type), store.
+template <class E>
+ZKT_HD void jac_add_lane(const PointArgs& args, int64_t i,
+                         bool live = true) {
+  using P = Planes<E>;
+  constexpr int K = P::K;
+  const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
+          Z1 = P::load(args.in + 2 * K, i);
+  const E X2 = P::load(args.in + 3 * K, i), Y2 = P::load(args.in + 4 * K, i),
+          Z2 = P::load(args.in + 5 * K, i);
+  E X3, Y3, Z3;
+  jac_add(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
   store3(args, i, live, X3, Y3, Z3);
+}
+
+// The MSM's Horner combine over the window sums (zkrollup/msm/msm.py:msm,
+// a fori_loop of curve.double and curve.add): args.in holds the X Y Z
+// planes of W rows, W_0 .. W_{W-1}. From res = infinity (every word 0),
+// for w = W-1 .. 0: c doubles of res, then res = res + W_w (the unified
+// add, its operands in that order). res is stored once, at row 0 of out,
+// if `live`.
+//
+// Every value carried in registers from one step to the next is the
+// canonical value that the route of one double or add launch a step
+// stored and reloaded, through the same operations in the same order, so
+// the limbs are that route's. The add's doubling path is voted over every
+// type: the kernels run the chain on one warp whose threads all hold the
+// same point (or the same pair of halves), so the vote is uniform and the
+// path is computed only where res == W_w.
+template <class E>
+ZKT_HD void horner_lane(const PointArgs& args, int64_t W, int c, bool live) {
+  using P = Planes<E>;
+  constexpr int K = P::K;
+  E X = E::zero(), Y = E::zero(), Z = E::zero();
+#pragma unroll 1
+  for (int64_t w = W - 1; w >= 0; --w) {
+#pragma unroll 1
+    for (int k = 0; k < c; ++k) {
+      E dX, dY, dZ;
+      jac_double(dX, dY, dZ, X, Y, Z);
+      X = dX;
+      Y = dY;
+      Z = dZ;
+    }
+    const E X2 = P::load(args.in + 0 * K, w),
+            Y2 = P::load(args.in + 1 * K, w),
+            Z2 = P::load(args.in + 2 * K, w);
+    E aX, aY, aZ;
+    jac_add<E, true>(aX, aY, aZ, X, Y, Z, X2, Y2, Z2);
+    X = aX;
+    Y = aY;
+    Z = aZ;
+  }
+  store3(args, 0, live, X, Y, Z);
 }
 
 // Jacobian add WITHOUT the doubling path (pallas_curve.py:_add_nd_kernel,

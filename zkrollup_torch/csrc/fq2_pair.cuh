@@ -1,9 +1,10 @@
 // Fq2Pair: an Fq2 value of one G2 lane spread over two adjacent threads of
 // a warp (lanes 2j and 2j+1), for the paired point kernels of points.cuh
-// (jac_add, jac_madd_nd and jac_madd over Fq2: g2_add, g2_madd_nd and
-// g2_madd).
+// (jac_add, jac_madd_nd, jac_madd and jac_double over Fq2: g2_add,
+// g2_madd_nd, g2_madd and g2_double) and the G2 Horner (g2_horner: every
+// pair of its one warp on the same chain).
 //
-// Replaces, for those three kernels, the Fq2 layer of
+// Replaces, for those kernels, the Fq2 layer of
 // zkrollup/curve/pallas_curve_g2.py (_k2_mul, _k2_sqr) that Fq2 in
 // field.cuh follows one thread a lane.
 //
@@ -43,7 +44,7 @@
 // Per thread a product is 2 x 128 multiply instructions for the two
 // products and 8 x 17 for the reduction, against 3 x 264 in one thread
 // for Fq2::mul: about the same per lane, half the chain per thread, and 8
-// registers a value instead of 16, so the three paired kernels run 12
+// registers a value instead of 16, so the paired kernels run 12
 // warps an SM with no spill (g2.cu).
 //
 // Device only: the two halves of a value live in two threads. Every

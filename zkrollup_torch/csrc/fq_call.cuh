@@ -1,6 +1,7 @@
 // FqCall: Fq with its product as a called function, not inlined, for the
-// G1 point kernels of the prove path (g1_add and g1_madd_nd) and of the
-// setup's fixed-base steps (g1_madd), g1.cu.
+// G1 point kernels of the prove path (g1_add and g1_madd_nd), of the
+// setup's fixed-base steps (g1_madd) and of the MSM's Horner (g1_double,
+// g1_horner), g1.cu.
 //
 // Replaces, for those three kernels, the in-kernel field library of
 // zkrollup/curve/pallas_curve.py (_k_mont_mul, _k_sqr) that Fq in
@@ -17,10 +18,11 @@
 //
 // Values, storage and results are Fq's: mul runs Fp::mul's body, and
 // every other operation forwards to Fq, so the two types agree bit for
-// bit. Only g1.cu's g1_add, g1_madd_nd and g1_madd are instantiated over
-// it (g1_madd since it moved off Fq: 3.1x at the setup's 482,413 lanes,
-// chip_smoke.py --ab, with the doubling path voted per warp); every other
-// kernel keeps Fq.
+// bit. g1.cu's g1_add, g1_madd_nd, g1_madd, g1_double and g1_horner are
+// instantiated over it (g1_madd since it moved off Fq: 3.1x at the
+// setup's 482,413 lanes, chip_smoke.py --ab, with the doubling path voted
+// per warp; g1_double and g1_horner: g1.cu); g1_add_nd and g1_add_z01
+// keep Fq.
 #pragma once
 
 #include <cstdint>

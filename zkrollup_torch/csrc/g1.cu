@@ -1,7 +1,8 @@
 // The G1 point kernels: g1_add, g1_madd_nd and g1_madd over FqCall
 // (fq_call.cuh, the product called rather than inlined; g1_add_kernel,
-// g1_madd_nd_kernel, g1_madd_kernel), the other three over Fq (g1_add_nd,
-// g1_add_z01, g1_double: the templates of points.cuh). Built by its own
+// g1_madd_nd_kernel, g1_madd_kernel), g1_add_nd and g1_add_z01 over Fq
+// (the templates of points.cuh), g1_double (the template) and the MSM's
+// Horner (g1_horner_kernel) over G1Dbl, FqCall too. Built by its own
 // nvcc, beside g2.cu, fields.cu and alu.cu.
 //
 // g1_add and g1_madd_nd carry the G1 MSM of a proof: g1_madd_nd runs 127
@@ -22,9 +23,21 @@
 // and at (128, 5), the bound that would hold 74,492 lanes in one wave of
 // 20 warps, g1_madd_nd spills 192; each ran slower than at these bounds
 // (g1_madd 4% at 482,413 lanes, chip_smoke.py --ab).
+//
+// g1_double and g1_horner share one element type, G1Dbl: FqCall. The
+// Horner's chain is the double's formula 264 times and the add's 22 times
+// on one warp. Over Fq, the product inlined, its loop body holds some 30
+// copies of the product; called, one. On an H100 (chip_smoke.py --ab
+// against a copy of this file with G1Dbl = Fq) the called product made
+// g1_horner 1.40x faster (1.464 ms against 2.056 for 22 windows at
+// c = 12) and g1_double 1.09x at 2^16 lanes (0.0209 ms against 0.0227),
+// 1.17x slower on one lane (8.3 us against 7.1), the width the Horner
+// launched it at before it ran in one kernel; ptxas 145 and 80 registers
+// against 128 and 64, no spill.
 #include "points.cuh"
 
 namespace zkt {
+using G1Dbl = FqCall;
 constexpr int G1_ADD_MIN_BLOCKS = 3;
 constexpr int G1_MADD_ND_MIN_BLOCKS = 4;
 constexpr int G1_MADD_MIN_BLOCKS = 3;
@@ -32,6 +45,7 @@ ZKT_LANE_KERNEL(g1_add_kernel, jac_add_lane, FqCall, G1_ADD_MIN_BLOCKS)
 ZKT_LANE_KERNEL(g1_madd_nd_kernel, jac_madd_nd_lane, FqCall,
                 G1_MADD_ND_MIN_BLOCKS)
 ZKT_LANE_KERNEL(g1_madd_kernel, jac_madd_lane, FqCall, G1_MADD_MIN_BLOCKS)
+ZKT_HORNER_KERNEL(g1_horner_kernel, G1Dbl, 1)
 }  // namespace zkt
 
 ZKT_POINT_API(g1, add, zkt::launch_point<zkt::FqCall>, zkt::g1_add_kernel, 2)
@@ -43,5 +57,6 @@ ZKT_POINT_API(g1, add_z01, zkt::launch_point<zkt::Fq>,
               zkt::jac_add_z01_kernel<zkt::Fq>, 2)
 ZKT_POINT_API(g1, madd, zkt::launch_point<zkt::FqCall>, zkt::g1_madd_kernel,
               2)
-ZKT_POINT_API(g1, double, zkt::launch_point<zkt::Fq>,
-              zkt::jac_double_kernel<zkt::Fq>, 1)
+ZKT_POINT_API(g1, double, zkt::launch_point<zkt::G1Dbl>,
+              zkt::jac_double_kernel<zkt::G1Dbl>, 1)
+ZKT_HORNER_API(g1, zkt::G1Dbl, zkt::g1_horner_kernel)

@@ -1,8 +1,9 @@
-// The G2 point kernels (over Fq2): g2_add, g2_madd_nd and g2_madd on the
-// paired Fq2 type, two threads a lane (jac_add_pair_kernel,
-// jac_madd_nd_pair_kernel, jac_madd_pair_kernel); g2_add_nd, g2_add_z01
-// and g2_double over Fq2, one thread a lane. Built by its own nvcc,
-// beside g1.cu, fields.cu and alu.cu.
+// The G2 point kernels (over Fq2): g2_add, g2_madd_nd, g2_madd and
+// g2_double on the paired Fq2 type, two threads a lane
+// (jac_add_pair_kernel, jac_madd_nd_pair_kernel, jac_madd_pair_kernel,
+// jac_double_pair_kernel), and the MSM's Horner on it (g2_horner_kernel,
+// one warp); g2_add_nd and g2_add_z01 over Fq2, one thread a lane. Built
+// by its own nvcc, beside g1.cu, fields.cu and alu.cu.
 //
 // The paired kernels' launch bounds (PAIR_THREADS, PAIR_MIN_BLOCKS in
 // points.cuh) are set from ptxas -v for sm_90a (chip_smoke.py phase 1): no
@@ -14,13 +15,16 @@
 // stack frame; at (128, 4) all three spill (120, 80 and 24 bytes). The
 // one-thread jac_add<Fq2> took 255 and spilled 172 bytes, jac_madd_nd<Fq2>
 // 255 and 16, jac_madd<Fq2> 255 and 20. chip_smoke.py phase 1 fails if a
-// paired kernel spills.
+// paired kernel spills. The double went onto thread pairs last: one
+// thread computing it over Fq2 took 137 registers.
 #include "points.cuh"
 
 namespace zkt {
 ZKT_PAIR_KERNEL(jac_add_pair_kernel, jac_add_lane)
 ZKT_PAIR_KERNEL(jac_madd_nd_pair_kernel, jac_madd_nd_lane)
 ZKT_PAIR_KERNEL(jac_madd_pair_kernel, jac_madd_lane)
+ZKT_PAIR_KERNEL(jac_double_pair_kernel, jac_double_lane)
+ZKT_HORNER_KERNEL(g2_horner_kernel, Fq2Pair, 2)
 }  // namespace zkt
 
 ZKT_POINT_API(g2, add, zkt::launch_pair, zkt::jac_add_pair_kernel, 2)
@@ -30,5 +34,5 @@ ZKT_POINT_API(g2, add_nd, zkt::launch_point<zkt::Fq2>,
 ZKT_POINT_API(g2, add_z01, zkt::launch_point<zkt::Fq2>,
               zkt::jac_add_z01_kernel<zkt::Fq2>, 2)
 ZKT_POINT_API(g2, madd, zkt::launch_pair, zkt::jac_madd_pair_kernel, 2)
-ZKT_POINT_API(g2, double, zkt::launch_point<zkt::Fq2>,
-              zkt::jac_double_kernel<zkt::Fq2>, 1)
+ZKT_POINT_API(g2, double, zkt::launch_pair, zkt::jac_double_pair_kernel, 1)
+ZKT_HORNER_API(g2, zkt::Fq2Pair, zkt::g2_horner_kernel)

@@ -1,9 +1,12 @@
 // The zkrollup_torch point kernels: the lanes of curve.cuh over the
 // coordinate field E, one launch function each. Three are templates over E
-// (Fq for G1 in g1.cu, Fq2 for G2 in g2.cu); the add and both mixed adds
-// are built over FqCall (fq_call.cuh, one thread a G1 lane, g1.cu's
-// g1_add, g1_madd_nd and g1_madd) and over Fq2Pair (two threads a G2 lane,
-// g2.cu's g2_add, g2_madd_nd and g2_madd).
+// (Fq, or FqCall for the double, in g1.cu; Fq2 in g2.cu, which builds two
+// of them); the add and both mixed adds are built over FqCall
+// (fq_call.cuh, one thread a G1 lane, g1.cu's g1_add, g1_madd_nd and
+// g1_madd) and over Fq2Pair (two threads a G2 lane, g2.cu's g2_add,
+// g2_madd_nd and g2_madd), and so is the double over Fq2Pair (g2_double).
+// The Horner kernels run the MSM's whole combine on one warp (g1_horner
+// over FqCall, g2_horner over Fq2Pair).
 //
 //   jac_add         replaces pallas_curve.py:g1_add (_add_kernel) over
 //                   FqCall (g1_add_kernel); over Fq2Pair (jac_add_pair)
@@ -21,8 +24,13 @@
 //   jac_madd        replaces pallas_curve.py:g1_madd
 //                   (_make_madd_kernel(False)) over FqCall (g1_madd_kernel);
 //                   over Fq2Pair (jac_madd_pair) pallas_curve_g2.py:g2_madd
-//   jac_double<E>   replaces pallas_curve.py:g1_double (_double_kernel) and
-//                   g2_double
+//   jac_double<E>   replaces pallas_curve.py:g1_double (_double_kernel)
+//                   over FqCall; over Fq2Pair (jac_double_pair)
+//                   pallas_curve_g2.py:g2_double
+//   horner          replaces the device Horner of zkrollup/msm/msm.py:msm
+//                   (a fori_loop of c doubles and one add a window on one
+//                   point: 286 launches a curve at c = 12) with one launch
+//                   of one warp (g1_horner_kernel, g2_horner_kernel)
 //
 // One thread per lane (two for the Fq2Pair kernels): load 16-bit limbs from
 // the (n, 16) int32 storage, pack them into 8 words in registers, compute,
@@ -43,11 +51,19 @@
 //   jac_add_z01 G1 6 + 6,       192 +  96 B;  G2 16 + 13,     384 + 192 B
 // The storage moves twice those bytes: every coordinate is a 64-byte row
 // of 16 int32 limbs, half of each word zero. The kernels are branch-free,
-// so every lane also computes the doubling path, but for g1_add, g1_madd
-// and g2_madd, which compute it only in warps that need it. At 64
-// multiplies per SM per clock every point kernel is multiply-bound on the
-// packed bytes; the G1 double and the G1 add_z01 come closest to the
-// balance point.
+// so every lane also computes the doubling path, but for g1_add, g1_madd,
+// g2_madd and the Horner's add, which compute it only in warps that need
+// it. At 64 multiplies per SM per clock every point kernel is
+// multiply-bound on the packed bytes; the G1 double and the G1 add_z01
+// come closest to the balance point.
+//
+// The Horner kernels are the exception: one chain of W c doubles and W
+// adds (c = 12, W = 22 on the MSM's 256-bit scalars: 264 doubles, 22 adds)
+// on one warp, a few hundred bytes read. What bounds them is the latency
+// of that chain: a warp issues a 32-bit multiply every 2 clocks (16 a clock
+// an SM sub-partition), and each product depends on the one before. One
+// launch replaces the 286 one-lane launches of the route before it, each
+// of which paid a launch and a round trip of its point through memory.
 //
 // Register pressure and latency are the other limit. A G1 point add holds
 // ~10 live field elements (80 registers); one thread computing an Fq2 add
@@ -56,14 +72,15 @@
 // The one-thread kernels cap blocks at 128 threads (__launch_bounds__) and
 // accept the spill: it stays in L1 and no intermediate goes to device
 // memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> and
-// jac_add_z01<Fq2> 255 registers and 60 bytes of spill stores each,
-// jac_double<Fq2> 137; over Fq jac_add_nd 142, jac_add_z01 127,
-// jac_double 64, none of them spilling. jac_add<Fq2>, jac_madd_nd<Fq2> and
-// jac_madd<Fq2>, which g2.cu no longer builds, took 255 and spilled 172,
-// 16 and 20 bytes; jac_add<Fq>, jac_madd_nd<Fq> and jac_madd<Fq>, which
-// g1.cu no longer builds, 131, 123 and 128.) Over FqCall, its product
-// called, the three G1 kernels fit without spill at the launch bounds of
-// g1.cu, whose comment gives their registers. The Fq2Pair kernels
+// jac_add_z01<Fq2> 255 registers and 60 bytes of spill stores each;
+// over Fq jac_add_nd 142 and jac_add_z01 127, neither spilling.
+// jac_add<Fq2>, jac_madd_nd<Fq2> and jac_madd<Fq2>, which g2.cu no
+// longer builds, took 255 and spilled 172, 16 and 20 bytes, and
+// jac_double<Fq2> 137 with no spill; jac_add<Fq>, jac_madd_nd<Fq>,
+// jac_madd<Fq> and jac_double<Fq>, which g1.cu no longer builds, 131,
+// 123, 128 and 64.) Over FqCall, its product called, the G1 kernels fit
+// without spill at the launch bounds of g1.cu, whose comment gives their
+// registers. The Fq2Pair kernels
 // (fq2_pair.cuh) halve both: 8 registers a value and half the chain a
 // thread, each Fq2 product one Montgomery reduction of two unreduced
 // products; their launch bounds and ptxas figures are in g2.cu.
@@ -124,7 +141,18 @@ static_assert(PAIR_THREADS % 32 == 0,
     LANE<Fq2Pair>(args, i < n ? i : n - 1, i < n);                           \
   }
 
-// n_in: input points (2 for the adds, 1 for the double)
+// A Horner kernel (curve.cuh:horner_lane over E): one warp, every thread
+// on the same chain, so that every thread reaches the add's warp vote and
+// Fq2Pair's shuffles; only the STORERS threads of lane 0 store (1 for a
+// one-thread type, 2 for Fq2Pair). One warp needs no occupancy, so the
+// launch bounds ask for no minimum of blocks.
+#define ZKT_HORNER_KERNEL(NAME, E, STORERS)                                \
+  __global__ void __launch_bounds__(32)                                   \
+      NAME(PointArgs args, int64_t W, int c) {                            \
+    horner_lane<E>(args, W, c, threadIdx.x < (STORERS));                  \
+  }
+
+// n_in: input points (2 for the adds, 1 for the double and the Horner)
 template <class E>
 PointArgs point_args(void* const* in, void* const* out, int n_in) {
   PointArgs args = {};
@@ -157,6 +185,18 @@ inline int launch_pair(PointKernel kernel, int n_in, void* const* in,
   return int(cudaGetLastError());
 }
 
+using HornerKernel = void (*)(PointArgs, int64_t, int);
+
+// The launch of a Horner kernel: one block of one warp; in holds the W
+// rows of the window sums, out one row.
+template <class E>
+int launch_horner(HornerKernel kernel, void* const* in, void* const* out,
+                  int64_t W, int c, void* stream) {
+  kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      point_args<E>(in, out, 1), W, c);
+  return int(cudaGetLastError());
+}
+
 }  // namespace zkt
 
 // One C entry point: zkt_<G>_<NAME>(in, out, n, stream), with in and out
@@ -167,4 +207,13 @@ inline int launch_pair(PointKernel kernel, int n_in, void* const* in,
   extern "C" int zkt_##G##_##NAME(void* const* in, void* const* out,        \
                                   int64_t n, void* stream) {                \
     return LAUNCH(KERNEL, N_IN, in, out, n, stream);                        \
+  }
+
+// The Horner's C entry point: zkt_<G>_horner(in, out, W, c, stream), with
+// in the X Y Z planes of the (W, 16) window sums and out those of one row;
+// KERNEL is its kernel over E.
+#define ZKT_HORNER_API(G, E, KERNEL)                                        \
+  extern "C" int zkt_##G##_horner(void* const* in, void* const* out,        \
+                                  int64_t W, int c, void* stream) {         \
+    return zkt::launch_horner<E>(KERNEL, in, out, W, c, stream);            \
   }

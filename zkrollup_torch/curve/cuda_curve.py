@@ -5,9 +5,12 @@ Counterpart of zkrollup/curve/pallas_curve.py (g1_add, g1_add_nd,
 g1_add_z01, g1_madd_nd, g1_madd, g1_double) and
 zkrollup/curve/pallas_curve_g2.py (g2_add, g2_add_nd, g2_madd_nd, g2_madd,
 g2_double; g2_add_z01 replaces the Fq2 XLA glue of
-weierstrass.py:_add_z01_generic). The kernels are the jac_add / jac_add_nd
-/ jac_add_z01 / jac_madd_nd / jac_madd / jac_double templates of
-csrc/points.cuh over csrc/curve.cuh, instantiated over Fq and Fq2. The
+weierstrass.py:_add_z01_generic), and of the device Horner of
+zkrollup/msm/msm.py:msm (horner: g1_horner, g2_horner, one launch where
+the reference loops over the double and add kernels). The kernels are the
+jac_add / jac_add_nd / jac_add_z01 / jac_madd_nd / jac_madd / jac_double /
+horner lanes of csrc/curve.cuh, built by csrc/points.cuh, g1.cu and g2.cu
+over Fq and Fq2. The
 plain versions follow the Pallas kernels formula for formula and select
 for select, so the kernels and the plain versions agree bit for bit,
 including the Jacobian representative and the Z-only zeroing on P + (-P).
@@ -165,6 +168,20 @@ def madd_plain(curve, p, q):
     return _inf_selects(curve, out, h_zero & ~r_zero & ~p_inf & ~q_inf, p, q)
 
 
+def horner_plain(curve, wsum, c: int):
+    """The MSM's Horner combine (zkrollup/msm/msm.py:msm): over the window
+    sums wsum (leaves (W, 16)), high to low, res = 2^c res + W_w as c
+    double_plain and one add_plain a window on one point, from infinity.
+    Returns one Jacobian point with (16,) leaves."""
+    n_windows = curve.leaves(wsum)[0].shape[0]
+    res = curve.infinity((1,), _device(wsum[2]))
+    for w in range(n_windows - 1, -1, -1):
+        for _ in range(c):
+            res = double_plain(curve, res)
+        res = add_plain(curve, res, curve.map(lambda a: a[w:w + 1], wsum))
+    return curve.map(lambda a: a[0], res)
+
+
 def _device(z):
     return (z[0] if isinstance(z, tuple) else z).device
 
@@ -236,3 +253,30 @@ def double(curve, p):
     if _on_cpu(curve, p):
         return double_plain(curve, p)
     return _launch_point(f"{curve.name}_double", curve, p)
+
+
+def horner(curve, wsum, c: int):
+    """The MSM's Horner combine of window sums wsum (leaves (W, 16)),
+    res = 2^c res + W_w from the top window down: on the card one launch
+    of the g1_horner / g2_horner kernel, the Jacobian limbs of c double
+    and one add launches a window. Returns one Jacobian point with (16,)
+    leaves."""
+    if c < 0:
+        raise ValueError(f"horner: c={c} must be >= 0")
+    if _on_cpu(curve, wsum):
+        return horner_plain(curve, wsum, c)
+    name = f"{curve.name}_horner"
+    ins = curve.leaves(wsum)
+    for i, t in enumerate(ins):
+        kernels.check_cuda(t, f"{name} input {i}")
+        if t.dim() != 2 or t.shape != ins[0].shape or \
+                t.device != ins[0].device:
+            raise ValueError(f"{name}: every coordinate must be one (W, 16) "
+                             f"shape on one device, got {tuple(t.shape)} vs "
+                             f"{tuple(ins[0].shape)}")
+    outs = [torch.empty(16, dtype=t.dtype, device=t.device) for t in ins]
+    in_arr = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+    out_arr = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+    kernels.launch(name, ins[0].device, ctypes.addressof(in_arr),
+                   ctypes.addressof(out_arr), ins[0].shape[0], c, lanes=1)
+    return curve.from_leaves(outs)

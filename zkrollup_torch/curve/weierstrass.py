@@ -222,6 +222,12 @@ class JacobianCurve:
         """Unified complete addition (g1_add / g2_add kernel)."""
         return cuda_curve.add(self, p, q)
 
+    def horner(self, wsum, c: int):
+        """The MSM's Horner combine of window sums (leaves (W, 16)), from
+        the top window down, res = 2^c res + W_w: one g1_horner /
+        g2_horner launch. Returns one point with (16,) leaves."""
+        return cuda_curve.horner(self, wsum, c)
+
     def add_nd(self, p, q):
         """Jacobian add for p and q that are never the same point (the
         g1_add_nd / g2_add_nd kernel, weierstrass.py:add_nd): no doubling

@@ -53,6 +53,8 @@ _SIGS = {
     "fold[fr]": ("fields", "zkt_fold_fr", [_P, _P, _P, _P, _I64, _P]),
     **{f"{g}_{k}": (g, f"zkt_{g}_{k}", _POINT) for g in ("g1", "g2")
        for k in ("add", "madd_nd", "double", "madd", "add_nd", "add_z01")},
+    **{f"{g}_horner": (g, f"zkt_{g}_horner", [_P, _P, _I64, ctypes.c_int,
+                                              _P]) for g in ("g1", "g2")},
     **{f"alu_{op}": ("alu", f"zkt_alu_{op}", _ALU)
        for op in ("mul", "add", "shift_add", "f32_mul12", "mul16",
                   "umulhi")},
@@ -138,10 +140,12 @@ def build() -> dict:
 
 def bind(unit: str, path: str) -> ctypes.CDLL:
     """Load a built library of source unit `unit` and declare the C
-    signatures of its entry points."""
+    signatures of its entry points. An entry point the library lacks (a
+    build of other sources, chip_smoke.py --ab) stays undeclared, and
+    launching it raises."""
     lib = ctypes.CDLL(path)
     for u, sym, argtypes in _SIGS.values():
-        if u == unit:
+        if u == unit and hasattr(lib, sym):
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -34,9 +34,10 @@ All four are exact for any table (duplicate points and infinity rows
 included); "scan" with distinct=True needs pairwise-distinct points.
 Sort, gathers, scatters, searchsorted and index arithmetic are torch ops.
 The prover brings window sums to the host for a Horner combine there
-(msm/glv.py); `msm` combines them on the device instead, on the double and
-add kernels. The reference reads its strategy from ZKROLLUP_MSM_TREE at
-import; the port takes it as the `tree` argument and reads no environment.
+(msm/glv.py); `msm` combines them on the device instead, in one launch
+of the Horner kernel. The reference reads its strategy from
+ZKROLLUP_MSM_TREE at import; the port takes it as the `tree` argument and
+reads no environment.
 """
 
 from __future__ import annotations
@@ -500,20 +501,13 @@ def window_sums(curve, points_affine, scalars, c: int = 12,
 def msm(curve, points_affine, scalars, c: int = 12, n_bits: int = 256,
         distinct: bool = False, tree: str = "scan", chunk: int = CHUNK):
     """Full MSM on the scalars' device (msm.py:msm): the window sums, then
-    the Horner combine over windows, high to low, res = 2^c res + W_w, as
-    c double launches and one add launch per window on one lane. Returns
-    one Jacobian point with (16,) leaves. distinct=False (the default) is
-    correct for any table; distinct=True needs pairwise-distinct points."""
+    the Horner combine over windows, high to low, res = 2^c res + W_w, in
+    one launch (curve.horner). Returns one Jacobian point with (16,)
+    leaves. distinct=False (the default) is correct for any table;
+    distinct=True needs pairwise-distinct points."""
     wsum, c = window_sums(curve, points_affine, scalars, c, n_bits, distinct,
                           tree, chunk)
-    n_windows = curve.leaves(wsum)[0].shape[0]
-    res = curve.infinity((1,), scalars.device)
-    for w in range(n_windows - 1, -1, -1):
-        for _ in range(c):
-            res = curve.double(res)
-        res = curve.add(res, curve.map(lambda a: a[w:w + 1].contiguous(),
-                                       wsum))
-    return curve.map(lambda a: a[0], res)
+    return curve.horner(wsum, c)
 
 
 def msm_host_combine(curve, points_affine, scalars, c: int = 12,

@@ -133,14 +133,16 @@ class BatchDaemon:
         stop = threading.Event()
 
         def witness_stage():
-            offset = 0
+            # read ahead by queue index: the settling loop below moves the
+            # processed cursor, so an offset from it would skip batches
+            start = self.queue.last_processed
             tree = self.state.load_tree()
             prepared_n = 0
             while not stop.is_set():
                 if max_batches is not None and prepared_n >= max_batches:
                     break
                 txs = self.queue.peek_batch(self.cfg.batch_size,
-                                            offset=offset)
+                                            start=start)
                 if txs is None:
                     if max_batches is None:
                         time.sleep(poll_interval)
@@ -152,7 +154,7 @@ class BatchDaemon:
                     prepared.put(e)
                     return
                 tree = prep.final_tree       # chain the projected tree
-                offset += len(txs)
+                start += len(txs)
                 prepared_n += 1
                 prepared.put(prep)
             prepared.put(None)               # end-of-stream

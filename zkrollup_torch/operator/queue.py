@@ -99,14 +99,18 @@ class TxQueue:
         ).fetchall()
         return [_tx_from_json(r[0]) for r in rows]
 
-    def peek_batch(self, batch_size: int,
-                   offset: int = 0) -> Optional[List[Transaction]]:
+    def peek_batch(self, batch_size: int, offset: int = 0,
+                   start: Optional[int] = None
+                   ) -> Optional[List[Transaction]]:
         """Next batch_size txs in order (skipping `offset` txs past the
-        processed cursor — the DP pipeline peeks batch i+1 while batch i
-        is still proving), or None if not enough queued."""
-        if self.pending_count() < batch_size + offset:
+        processed cursor), or None if not enough queued. `start`, where
+        given, is the queue index of the first tx instead: the DP pipeline
+        reads batch i+1 by index while batch i proves, since settling
+        batch i moves the processed cursor under it."""
+        if start is None:
+            start = self.last_processed + offset
+        if self.last_inserted < start + batch_size:
             return None
-        start = self.last_processed + offset
         rows = self.conn.execute(
             "SELECT body FROM tx_queue WHERE idx >= ? AND idx < ? "
             "ORDER BY idx", (start, start + batch_size)).fetchall()
