@@ -8,9 +8,10 @@ Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
   1. build the CUDA kernels (four nvcc processes at once, one per source of
      zkrollup_torch/csrc, with each kernel's registers, spill and stack
-     frame from the ptxas report; the seven point kernels with launch
-     bounds, g1_add, g1_madd_nd, g1_madd, g2_add, g2_madd_nd, g2_madd and
-     g2_double, and the two Horner kernels must not spill, six logged
+     frame from the ptxas report; the eight point kernels with launch
+     bounds, g1_add, g1_madd_nd, g1_madd, g2_add, g2_madd_nd, g2_madd,
+     g2_double and g2_add_z01, and the two Horner kernels must not spill,
+     six logged
      beside their registers before the unified add was factored out of
      its lane) and the native host engine (g++, from native/src into
      build/native), with seconds
@@ -22,7 +23,14 @@ Phases; any failure raises and the script exits non-zero:
      prologue, a batch of three) and as 17 one-stage passes, each pass and
      the quotient timed; the fold on 2^17 rows with its edge rows; the
      gathered mont_mul at 164,215 lanes and mont_mul at the witness's
-     117,114;
+     117,114; the inversion kernels (inv[fq], inv[fq2]) against their plain
+     versions and against the route of one mont_mul launch a product
+     (inv_loop), at the setup's widths (482,413 Fq lanes, 117,114 Fq2) and
+     2^17, on ragged launches of 1, 22, 33 and 1,025 lanes and one finite
+     lane, with 0, 1, q - 1, R mod q and zero lanes first, in the middle
+     and last of a thread's lanes, and every lane of a thread zero, timed
+     (device and wall ms) beside the bound of the function's own work,
+     the kernel's own product count and inv_loop, also on one lane;
      the doubles (g2_double on thread pairs) also on ragged launches of
      1, 22 and 33 lanes at two offsets, of 1,025 lanes and on one lane
      (timed); the Horner kernels (g1_horner, g2_horner: the MSM's whole
@@ -40,7 +48,9 @@ Phases; any failure raises and the script exits non-zero:
      of distinct pairs with one P + P lane, a warp of infinity + infinity,
      ragged launches of 33 and 1,025 lanes with P + P in the last warp),
      all six on ragged launches of 1, 22 and 33 lanes and on one lane
-     (timed); the six
+     (timed); g2_add_z01 (on thread pairs) also at the msm_trees leaf
+     level's 1,441,792 lanes (timed there), on the warp-vote cases and on
+     ragged launches; the vote cases also with a P + (-P) lane; the six
      integer-unit kernels at the width and reps of phase 7's rate run (and
      at a small width)
   3. setup on the card: TxProver for the default BatchProcessTx(2, 6)
@@ -48,7 +58,8 @@ Phases; any failure raises and the script exits non-zero:
      the GPU (never read from a cache); setup_host makes the same key on
      the native engine; the two must be equal byte for byte; the setup
      path's widest launches of g1_madd and g2_madd must be SETUP_SHAPES,
-     32 each, mont_mul[fq] at most 1,000; its peak device memory; then
+     32 each, mont_mul[fq] at most 16, inv[fq] and inv[fq2] once each;
+     its peak device memory; then
      the setup in parts on the host clock (the scalar derivation, the
      window tables, the scalars' encoding, each table's fixed-base loop and
      normalisation, the copies back, _key), whose key must be the same
@@ -75,7 +86,9 @@ Phases; any failure raises and the script exits non-zero:
      three strategies and msm_glv with two of them (the "msm_trees" path);
      on each table's window sums the Horner kernel equals horner_loop limb
      for limb, and msm() is timed with the Horner kernel and with the
-     window sums and horner_loop, in turns
+     window sums and horner_loop, in turns; msm(tree="affine") is timed
+     with the inversion kernel and with the route before it (the product
+     tree, its root by inv_loop), in turns, each equal to the native engine
   6. the GLV prover with the Jacobian merge tree (TxProver(glv=True,
      tree="jacobian"), the "prove_glv" path): the batch of phase 4 at the
      same pinned (r, s), whose bytes must equal phase 4's proof and the
@@ -89,9 +102,10 @@ Phases; any failure raises and the script exits non-zero:
      the first proof, the MSMs, the strategies, the GLV proof, the tools,
      the G1 add_nd), each counted from 0 just before its path; each kernel
      of a path must launch on it; on prove ntt_pass and mont_mul[fr] at most
-     six times, fold[fr] eight times, limbs.normalize on CUDA tensors never;
-     on the msm paths one Horner a msm() call and no double, and on "msm"
-     34 adds a curve
+     six times, fold[fr] eight times, mont_mul[fq] at most five times,
+     limbs.normalize on CUDA tensors never; on the msm paths one Horner a
+     msm() call and no double, on "msm" 34 adds a curve, and on
+     "msm_trees" mont_mul[fq] and the inversions within MSM_LIMITS
   9. the operator loop through the port's entry points (the "operator"
      path): `python -m zkrollup_torch.cli demo-rollup` in-process on the
      card with phase 3's key cached in a temporary --keys-dir (the
@@ -112,8 +126,9 @@ list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
 
 With --ab, phases 0 and 1 only, then the point kernels of PROVE_SHAPES
-and SETUP_SHAPES, the doubles and the Horner kernels (where CSRC has
-them) of this checkout against those built from each CSRC
+and SETUP_SHAPES, the doubles, the Horner kernels, g2_add_z01 and the
+inversion kernels (where CSRC has them; each of AB_KERNELS once, checked
+by check_ab_cases) of this checkout against those built from each CSRC
 directory (another commit's zkrollup_torch/csrc unpacked with `git
 archive`, or an edited copy of this one's), on phase 2's operands and on
 one proof's own,
@@ -153,6 +168,10 @@ KERNELS = {
     "ntt_pass": (_CSRC + "fields.cu", "zkrollup/fields/pallas_mont.py:175"),
     # no Pallas kernel: the XLA glue of the spmv's carry pass and fold
     "fold[fr]": (_CSRC + "fields.cu", "zkrollup/groth16/prove.py:54"),
+    # no Pallas kernel: the Fermat inversion, a chain of mont_mul
+    # (mont_pow_const; over Fq2 through the norm, zkrollup/fields/fq2.py:51)
+    "inv[fq]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:159"),
+    "inv[fq2]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:159"),
     "g1_madd_nd": (_CSRC + "g1.cu", _PC + "504"),
     "g1_add": (_CSRC + "g1.cu", _PC + "480"),
     "g2_madd_nd": (_CSRC + "g2.cu", _PC2 + "304"),
@@ -177,13 +196,14 @@ KERNELS = {
 
 # the kernels each path must launch
 PATHS = {
-    "setup": ("mont_mul[fq]", "g1_madd", "g2_madd"),
+    "setup": ("mont_mul[fq]", "inv[fq]", "inv[fq2]", "g1_madd", "g2_madd"),
     "prove": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
               "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
     "msm": ("g1_madd", "g2_madd", "g1_horner", "g2_horner", "g1_add",
             "g2_add"),
-    "msm_trees": ("mont_mul[fq]", "g1_add", "g2_add", "g1_add_z01",
-                  "g2_add_z01", "g1_madd", "g1_horner", "g2_horner"),
+    "msm_trees": ("mont_mul[fq]", "inv[fq]", "inv[fq2]", "g1_add", "g2_add",
+                  "g1_add_z01", "g2_add_z01", "g1_madd", "g1_horner",
+                  "g2_horner"),
     "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                   "g1_add_z01", "g1_add", "g2_add_z01", "g2_add"),
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
@@ -196,7 +216,7 @@ PATHS = {
                  "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
     "withdraw": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                  "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add", "g1_madd",
-                 "g2_madd"),
+                 "g2_madd", "inv[fq]", "inv[fq2]"),
 }
 # the paths phase 9 drives; phase 8 checks the others
 LOOP_PATHS = ("operator", "withdraw")
@@ -252,9 +272,11 @@ GATHER_WIDEST = 735_774
 # launches on the prove path (phase 8): at most six NTT passes (the
 # quotient's three transforms, two passes each) and six mont_mul[fr] (the
 # witness's to_mont and the three gathered spmv products); exactly eight
-# folds (the three spmv rows, the four G1 tables' merged scalars, G2's)
+# folds (the three spmv rows, the four G1 tables' merged scalars, G2's);
+# at most five mont_mul[fq] (one from_mont a curve's window sums, and the
+# negations of the table-end subtraction, one for G1 and two for G2)
 PROVE_LIMITS = {"ntt_pass": (1, 6), "mont_mul[fr]": (1, 6),
-                "fold[fr]": (8, 8)}
+                "fold[fr]": (8, 8), "mont_mul[fq]": (1, 5)}
 # lanes per launch of the MSMs' point kernels on the prove path, the widest
 # of each (c = 12: 22 windows, chunks of 128 points). G1, the four a, b1,
 # c and h tables as one MSM of 3,386 chunks and 4 x 4,096 buckets: the
@@ -274,14 +296,31 @@ RAGGED = (1, 22, 33)
 # chunks of the scan leg).
 SETUP_SHAPES = {"g1_madd": (482_413,), "g2_madd": (117_114,)}
 MSM_MADD_LANES = 22_528
-# launches on the setup path (phase 3): 32 fixed-base steps a table, and
-# mont_mul[fq] (the normalisation's Fermat inversion, about 360 launches,
-# and its few products, once a table)
+# launches on the setup path (phase 3): 32 fixed-base steps a table; the
+# normalisation once a table: one inversion (inv[fq], inv[fq2]) and its
+# products (mont_mul[fq]: 4 for G1, 11 for G2)
 SETUP_LIMITS = {"g1_madd": (32, 32), "g2_madd": (32, 32),
-                "mont_mul[fq]": (1, 1000)}
+                "mont_mul[fq]": (1, 16), "inv[fq]": (1, 1),
+                "inv[fq2]": (1, 1)}
+# the widths of g2_add_z01 phase 2 holds it at beyond 2^16 lanes: the
+# Jacobian merge tree's leaf level on the msm paths (22 windows x 2^16
+# lanes, the b2 table padded to 2^17 pairs)
+Z01_SHAPES = {"g2_add_z01": (1_441_792,)}
+# the inversion kernels in phase 2: the widest launch (the setup's G1
+# table; 2^17 for Fq2, its table 117,114 a slice of it), the other
+# widths as slices of its operand, and ragged launches
+INV_SHAPES = {"inv[fq]": (482_413, 1 << 17), "inv[fq2]": (1 << 17, 117_114)}
+INV_RAGGED = (1, 22, 33, 1025)
+# the kernels --ab holds against the builds of other csrc/ (ab_run)
+AB_KERNELS = (*PROVE_SHAPES, *SETUP_SHAPES, "g1_double", "g2_double",
+              "g1_horner", "g2_horner", *Z01_SHAPES, *INV_SHAPES)
+# the Fermat chain of q - 2 in the inversion kernel: 253 squares, 109
+# products
+INV_CHAIN = 362
 # lanes a warp holds: one thread a G1 lane, two a G2 lane (thread pairs)
 WARP_LANES = {"g1": 32, "g2": 16}
-VOTE_CASES = ("one_p_plus_p", "inf_plus_inf", "ragged_33", "ragged_1025")
+VOTE_CASES = ("one_p_plus_p", "one_p_minus_p", "inf_plus_inf", "ragged_33",
+              "ragged_1025")
 # kernel entries with launch bounds of (threads a block, blocks an SM)
 # (csrc/g1.cu, csrc/points.cuh's PAIR_MIN_BLOCKS; the Horner kernels one
 # warp and no minimum); phase 1 fails if one of them is missing from the
@@ -291,6 +330,7 @@ LAUNCH_BOUNDS = {"g1_add_kernel": (128, 3), "g1_madd_nd_kernel": (128, 4),
                  "jac_madd_nd_pair_kernel": (128, 3),
                  "jac_madd_pair_kernel": (128, 3),
                  "jac_double_pair_kernel": (128, 3),
+                 "jac_add_z01_pair_kernel": (128, 3),
                  "g1_horner_kernel": (32, 1), "g2_horner_kernel": (32, 1)}
 # ptxas registers of the kernels built before the unified add was factored
 # out of its lane for the Horner (CUDA 12.8, sm_90a), which that must not
@@ -307,12 +347,19 @@ HORNER_W, HORNER_C = 22, 12
 # path one a curve, "msm_trees" three: its msm_glv calls combine on the
 # host), no double; on "msm" the scan route's 34 adds a curve (the halving
 # reduce, the chunk-total scan, the boundary add and the table-end
-# subtraction), where the one-lane Horner route added 22 more
+# subtraction), where the one-lane Horner route added 22 more; on
+# "msm_trees" at most the counts of the (2,6) key's tables: one inversion
+# a level of the affine tree (17 levels a curve) and 243 mont_mul[fq]
+# (the affine adds' products, 4 a level over G1 and 10 over G2, and the
+# GLV tables' and negations'), where the 362-launch Fermat chain a level
+# made 15,288
 MSM_LIMITS = {
     "msm": {"g1_horner": (1, 1), "g2_horner": (1, 1), "g1_double": (0, 0),
             "g2_double": (0, 0), "g1_add": (34, 34), "g2_add": (34, 34)},
     "msm_trees": {"g1_horner": (3, 3), "g2_horner": (3, 3),
-                  "g1_double": (0, 0), "g2_double": (0, 0)},
+                  "g1_double": (0, 0), "g2_double": (0, 0),
+                  "mont_mul[fq]": (1, 243), "inv[fq]": (1, 17),
+                  "inv[fq2]": (1, 17)},
 }
 
 
@@ -347,6 +394,27 @@ def horner_bounds(g: str, W: int, c: int, doubling_adds: int = 0):
     values = (W + 1) * 3 * (2 if g == "g2" else 1)
     return (bound(products, values * VALUE_BYTES),
             chain_ms(products / (2 if g == "g2" else 1)))
+
+
+def inv_bound(name: str, n: int):
+    """The bound of inv[fq] / inv[fq2] over n lanes, from the function's
+    own work: Montgomery's trick over all n lanes, 3 products a lane (7
+    over Fq2: the norm's two squares, the coordinates' two), less 3, and
+    one q - 2 chain, against the lanes' values read and written once. How
+    the kernel shares the lanes among threads does not enter it
+    (inv_kernel_products counts that)."""
+    lane, k = (3, 1) if name == "inv[fq]" else (7, 2)
+    return bound(lane * n - 3 + INV_CHAIN, 2 * k * n * VALUE_BYTES)
+
+
+def inv_kernel_products(name: str, n: int) -> int:
+    """The Fq products inv_kernel does over n lanes at
+    kernels.inv_per_thread() lanes a thread, T = ceil(n / that) threads:
+    3 a lane (7 over Fq2) and INV_CHAIN a thread, less 3 a thread (its
+    first lane has no prefix product and no back step)."""
+    from zkrollup_torch import kernels
+    T = -(-n // kernels.inv_per_thread())
+    return (3 if name == "inv[fq]" else 7) * n + (INV_CHAIN - 3) * T
 
 
 def alu_bound(op: str, n: int, reps: int):
@@ -500,6 +568,177 @@ def max_abs_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def inv_loop(a):
+    """The Fq inversion as it ran before the inversion kernel, the
+    baseline phases 2 and 5 time it against: Fermat, a^(q - 2), one
+    mont_mul[fq] launch a product (FieldCtx.mont_pow_const over the kernel
+    wrapper: 253 squares, 109 products)."""
+    from zkrollup_torch.fields.mont import FQ
+    return FQ.mont_pow_const(a, FQ.p - 2)
+
+
+def inv2_loop(a):
+    """The Fq2 inversion as it ran before the inversion kernel: the norm by
+    two mont_mul[fq] launches and FQ.add (a carry loop that reads back),
+    inv_loop, then (a0 n^-1, -(a1 n^-1)) by three more launches."""
+    from zkrollup_torch.fields.mont import FQ
+    norm = FQ.add(FQ.mont_mul(a[0], a[0]), FQ.mont_mul(a[1], a[1]))
+    ninv = inv_loop(norm)
+    return (FQ.mont_mul(a[0], ninv), FQ.neg(FQ.mont_mul(a[1], ninv)))
+
+
+@contextlib.contextmanager
+def inv_loop_route():
+    """While open, weierstrass.batch_inverse runs as it did before the
+    inversion kernel: the product tree (a mont_mul launch over each level)
+    with its root inverted by inv_loop or inv2_loop."""
+    from zkrollup_torch.curve import weierstrass as W
+    saved = (W.batch_inverse, W.FqOps.__dict__["inv"],
+             W.Fq2Ops.__dict__["inv"])
+    W.batch_inverse = W.batch_inverse_tree
+    W.FqOps.inv = staticmethod(inv_loop)
+    W.Fq2Ops.inv = staticmethod(inv2_loop)
+    try:
+        yield
+    finally:
+        W.batch_inverse = saved[0]
+        W.FqOps.inv, W.Fq2Ops.inv = saved[1], saved[2]
+
+
+def zero_lanes(n: int, per_thread: int) -> list:
+    """Lanes of a launch of n lanes at per_thread lanes a thread (T
+    threads, thread t on lanes t + j T): the first, the middle and the last
+    of thread 0 and of the last thread, and every lane of thread 1."""
+    T = -(-n // per_thread)
+    out = []
+    for t in (0, T - 1):
+        own = list(range(t, n, T))
+        out += [own[0], own[len(own) // 2], own[-1]]
+    return out + (list(range(1, n, T)) if T > 1 else [])
+
+
+def inv_operand(rand_fe, name: str, n: int, edges: bool = False):
+    """n lanes for inv[fq] (a tensor) or inv[fq2] (a pair): random
+    canonical values with zero_lanes(n, kernels.inv_per_thread()) zero;
+    with `edges` rows 2-5 are 1, q - 1, R mod q and 0 (in a0, with a1 = 0
+    over Fq2), and over Fq2 row 6 has a0 = 0 and row 7 a1 = 0."""
+    import torch
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.fields.mont import FQ
+    planes = [rand_fe(n) for _ in range(1 if name == "inv[fq]" else 2)]
+    dev = planes[0].device
+    from zkrollup_torch import kernels
+    zl = torch.tensor(zero_lanes(n, kernels.inv_per_thread()), device=dev)
+    for pl in planes:
+        pl[zl] = 0
+    if edges:
+        planes[0][2:6] = L.to_device(L.ints_to_limbs(
+            [1, FQ.p - 1, FQ.r_mod_p, 0]), dev)
+        if len(planes) == 2:
+            planes[1][2:6] = 0
+            planes[0][6] = 0
+            planes[1][7] = 0
+    return planes[0] if len(planes) == 1 else tuple(planes)
+
+
+def check_inv(dev, rand_fe, results):
+    """Phase 2, inv[fq] and inv[fq2]: bit for bit against their plain
+    versions (cuda_mont.inv_plain, inv_fq2_plain: Fermat over the plain
+    product) and against inv_loop / inv2_loop (one mont_mul[fq] launch a
+    product), at INV_SHAPES (the widest launch, its operand with the edge
+    rows of inv_operand, and a slice of it), on ragged launches of
+    INV_RAGGED lanes (zero lanes placed for each launch; one lane is a zero
+    lane) and on one finite lane. The plain version runs once on the widest
+    operand (timed) and once on the small ones concatenated. Timed: the
+    kernel at each width beside its bound, and on one lane beside one
+    thread's latency bound; inv_loop at the widest width and on one lane;
+    device ms (cuda_ms) and wall ms (wall_ms). Beside the bound, the
+    kernel's own product count (inv_kernel_products) at the multiply
+    rate."""
+    import torch
+    from zkrollup_torch import kernels
+    from zkrollup_torch.fields import cuda_mont, fq2
+    from zkrollup_torch.fields.mont import FQ
+
+    for name, (big, other) in INV_SHAPES.items():
+        two = name == "inv[fq2]"
+        kernel = fq2.inv if two else FQ.mont_inv
+        plain = ((lambda a: cuda_mont.inv_fq2_plain(FQ, a)) if two
+                 else (lambda a: cuda_mont.inv_plain(FQ, a)))
+        loop = inv2_loop if two else inv_loop
+        planes = (lambda x: list(x)) if two else (lambda x: [x])
+        join = tuple if two else (lambda ps: ps[0])
+        cut = lambda x, lo, hi: join([p[lo:hi].contiguous()
+                                      for p in planes(x)])
+
+        wide = inv_operand(rand_fe, name, big, edges=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_wide = plain(wide)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        small = [inv_operand(rand_fe, name, n) for n in INV_RAGGED]
+        small.append(inv_operand(rand_fe, name, 1))
+        planes(small[-1])[0][0] = planes(rand_fe(1))[0][0] | 1  # finite
+        cat = join([torch.cat(ps) for ps in zip(*map(planes, small))])
+        want_cat = plain(cat)
+        cases, off = [(big, wide, want_wide),
+                      (other, cut(wide, 0, other), cut(want_wide, 0, other))
+                      ], 0
+        for x in small:
+            n = planes(x)[0].shape[0]
+            cases.append((n, x, cut(want_cat, off, off + n)))
+            off += n
+        for n, x, want in cases:
+            e_plain = max_abs_err(planes(kernel(x)), planes(want))
+            e_loop = max_abs_err(planes(loop(x)), planes(want))
+            if e_plain or e_loop:
+                raise AssertionError(
+                    f"{name}: kernel or the launch-a-product route disagrees"
+                    f" with the plain version at {n} lanes")
+        shapes = {}
+        for n, x, _ in cases[:2]:
+            bnd = inv_bound(name, n)
+            prods = inv_kernel_products(name, n)
+            shapes[str(n)] = {"ms": cuda_ms(lambda: kernel(x), 20),
+                              "bound_ms": bnd[0], "bound_by": bnd[1],
+                              "kernel_products": prods,
+                              "kernel_products_ms": bound(prods, 0)[0]}
+        one = cases[-1][1]
+        chain = INV_CHAIN + (4 if two else 0)
+        res = {
+            "max_abs_err": 0, "lanes": big, "ms": shapes[str(big)]["ms"],
+            "plain_ms": plain_ms, "bound_ms": shapes[str(big)]["bound_ms"],
+            "bound_by": shapes[str(big)]["bound_by"], "library_ms": None,
+            "per_thread": kernels.inv_per_thread(), "shapes": shapes,
+            "wall_ms": wall_ms(lambda: kernel(wide)),
+            "loop_ms": cuda_ms(lambda: loop(wide), 2),
+            "loop_wall_ms": wall_ms(lambda: loop(wide), 3),
+            "one_lane_ms": cuda_ms(lambda: kernel(one), 20),
+            "one_lane_wall_ms": wall_ms(lambda: kernel(one)),
+            "one_lane_loop_ms": cuda_ms(lambda: loop(one), 2),
+            "one_lane_loop_wall_ms": wall_ms(lambda: loop(one), 3),
+            "one_lane_latency_bound_ms": chain_ms(chain)}
+        results[name] = res
+        log(f"  {name:13s} {big} and {other} lanes, ragged {INV_RAGGED}, one "
+            f"finite lane; 0, 1, q - 1, R mod q and zero lanes first, middle"
+            f" and last of a thread: max_abs_err 0 against the plain version "
+            f"and the launch-a-product route")
+        for n, row in shapes.items():
+            log(f"  {name:13s} {n} lanes: kernel {row['ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the kernel's "
+                f"own {row['kernel_products']} products "
+                f"{row['kernel_products_ms']:.4f} ms at the multiply rate")
+        log(f"  {name:13s} {big} lanes: kernel {res['wall_ms']:.4f} ms wall; "
+            f"the launch-a-product route {res['loop_ms']:.4f} ms device, "
+            f"{res['loop_wall_ms']:.4f} ms wall; plain {plain_ms:.1f} ms; "
+            f"one lane: kernel {res['one_lane_ms']:.4f} ms device, "
+            f"{res['one_lane_wall_ms']:.4f} wall, the route "
+            f"{res['one_lane_loop_ms']:.4f} device, "
+            f"{res['one_lane_loop_wall_ms']:.4f} wall; one thread's latency "
+            f"bound {res['one_lane_latency_bound_ms']:.4f} ms")
+
+
 def check_kernels(dev, results):
     """Phase 2: each kernel against its plain version on the card."""
     import torch
@@ -551,6 +790,7 @@ def check_kernels(dev, results):
                lane_bound("mont_mul", m))
 
     check_fields(dev, rand_fe, record, results)
+    check_inv(dev, rand_fe, results)
 
     # curve kernels over 2^16 lanes of real points
     n = 1 << 16
@@ -564,7 +804,7 @@ def check_kernels(dev, results):
                    lane_bound(name, n, n_dbl))
 
         check_double(curve, ops[f"{curve.name}_double"][2], results)
-        for name in (*PROVE_SHAPES, *SETUP_SHAPES):
+        for name in (*PROVE_SHAPES, *SETUP_SHAPES, *Z01_SHAPES):
             if name.startswith(curve.name + "_"):
                 check_widths(curve, name, *ops[name][:3], results)
         check_horner(curve, ops[f"{curve.name}_add"][2][0], results)
@@ -1019,13 +1259,16 @@ def take_lanes(curve, args, m: int, off: int = 0):
 
 def vote_lanes(case: str, warp: int) -> list:
     """Lanes of point_operands for a warp-vote case of a kernel whose warp
-    holds `warp` lanes: a warp of distinct pairs and one P + P lane, a warp
-    of infinity + infinity only (H = R = 0 on every lane, no doubling), or
-    a launch of 33 or 1,025 lanes whose P + P lane is in the ragged last
-    warp. Lanes 5.. of point_operands are distinct pairs."""
-    if case == "one_p_plus_p":
+    holds `warp` lanes: a warp of distinct pairs and one P + P lane (or one
+    P + (-P) lane), a warp of infinity + infinity only (H = R = 0 on every
+    lane, no doubling), or a launch of 33 or 1,025 lanes whose P + P lane
+    is in the ragged last warp. Lanes 5.. of point_operands are distinct
+    pairs."""
+    if case in ("one_p_plus_p", "one_p_minus_p"):
         k = warp // 2 + 1
-        return list(range(5, 5 + k)) + [0] + list(range(5 + k, 4 + warp))
+        lane = 0 if case == "one_p_plus_p" else 1
+        return (list(range(5, 5 + k)) + [lane]
+                + list(range(5 + k, 4 + warp)))
     if case == "inf_plus_inf":
         return [4] * warp
     return list(range(5, 4 + int(case.split("_")[1]))) + [0]
@@ -1033,7 +1276,9 @@ def vote_lanes(case: str, warp: int) -> list:
 
 def widths_of(name: str) -> list:
     """[(lanes, what)]: the widths beyond 2^16 at which phase 2 holds and
-    times a point kernel of PROVE_SHAPES or SETUP_SHAPES."""
+    times a point kernel of PROVE_SHAPES, SETUP_SHAPES or Z01_SHAPES."""
+    if name in Z01_SHAPES:
+        return [(m, "msm_trees leaves") for m in Z01_SHAPES[name]]
     if name in SETUP_SHAPES:
         return ([(m, "setup") for m in SETUP_SHAPES[name]]
                 + [(MSM_MADD_LANES, "msm")])
@@ -1042,18 +1287,20 @@ def widths_of(name: str) -> list:
 
 
 def check_widths(curve, name, fn, plain, args, results):
-    """Phase 2, a point kernel of PROVE_SHAPES or SETUP_SHAPES beyond 2^16
-    lanes: bit for bit against its plain version at widths_of(name), on
-    ragged launches (RAGGED, at two offsets), on one lane (six lanes, the
-    special ones included) and, for the mixed adds of SETUP_SHAPES, on the
-    warp-vote cases (VOTE_CASES at the kernel's warp); timed at those
+    """Phase 2, a point kernel of PROVE_SHAPES, SETUP_SHAPES or Z01_SHAPES
+    beyond 2^16 lanes: bit for bit against its plain version at
+    widths_of(name), on ragged launches (RAGGED, at two offsets), on one
+    lane (six lanes, the special ones included) and, for the voting kernels
+    of SETUP_SHAPES and Z01_SHAPES, on the warp-vote cases (VOTE_CASES at
+    the kernel's warp); timed at those
     widths, beside the bound there, and on one lane. Operands are lanes of
     `args` (2^16 lanes, lane 0 the only P == Q lane of the add), repeated
     past 2^16."""
     import torch
     n = curve.leaves(args[0])[0].shape[0]
     take = lambda m, off=0: take_lanes(curve, args, m, off)
-    doubles = name.endswith(("_add", "_madd"))    # has a doubling path
+    doubles = name.endswith(("_add", "_madd", "_add_z01"))  # doubling path
+    votes = name in SETUP_SHAPES or name in Z01_SHAPES
 
     def same(sub):
         return max_abs_err(curve.leaves(fn(curve, *sub)),
@@ -1075,7 +1322,7 @@ def check_widths(curve, name, fn, plain, args, results):
     bad = [(m, off) for m in RAGGED for off in (0, n - 7)
            if same(take(m, off)[0])]
     bad += [(1, off) for off in range(6) if same(take(1, off)[0])]
-    if name in SETUP_SHAPES:
+    if votes:
         dev = curve.leaves(args[0])[0].device
         for case in VOTE_CASES:
             idx = torch.tensor(vote_lanes(case, WARP_LANES[curve.name]),
@@ -1089,10 +1336,10 @@ def check_widths(curve, name, fn, plain, args, results):
     one, _ = take(1, 5)
     ms1 = cuda_ms(lambda: fn(curve, *one), 264)
     results[name].update(shapes=shapes, one_lane_ms=ms1)
-    votes = (f", vote cases {VOTE_CASES} at {WARP_LANES[curve.name]} lanes "
-             "a warp" if name in SETUP_SHAPES else "")
+    cases = (f", vote cases {VOTE_CASES} at {WARP_LANES[curve.name]} lanes "
+             "a warp" if votes else "")
     log(f"  {name:13s} ragged {RAGGED} lanes and one lane (lanes 0-5)"
-        f"{votes}: max_abs_err 0; one lane {ms1:.4f} ms")
+        f"{cases}: max_abs_err 0; one lane {ms1:.4f} ms")
 
 
 def check_alu(dev, results):
@@ -1594,7 +1841,8 @@ def msm_phase(dev, pk, witness, launches):
     other three strategies and msm_glv ("msm_trees" path); then, per
     curve, the Horner kernel against the one-lane route (horner_loop) on
     the tables' window sums, limb for limb, and msm() timed through
-    each."""
+    each; then msm(tree="affine") timed with the inversion kernel and with
+    the route before it (inv_loop_route)."""
     import numpy as np
     import torch
     from zkrollup_torch import kernels
@@ -1684,6 +1932,26 @@ def msm_phase(dev, pk, witness, launches):
             f"limbs equal the one-lane route's on its window sums; seconds, "
             f"Horner kernel " + " ".join(f"{t:.4f}" for t in secs["horner"])
             + ", one-lane route " + " ".join(f"{t:.4f}" for t in secs["loop"]))
+
+    # the affine strategy's batched inversions: one inv[fq] / inv[fq2]
+    # launch a tree level against the route before the kernel (the product
+    # tree, its root by inv_loop), in turns, each equal to the native engine
+    for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
+        def affine(route):
+            if route == "kernel":
+                return msm(curve, tbl, sc, c=12, tree="affine")
+            with inv_loop_route():
+                return msm(curve, tbl, sc, c=12, tree="affine")
+        secs = {r: [] for r in ("kernel", "loop")}
+        for r in ("kernel", "loop", "loop", "kernel") * 2:
+            secs[r].append(timed(f"msm({name.upper()}, tree='affine'), "
+                                 f"inversion by {r}", name,
+                                 lambda: affine(r)))
+        times[f"msm_{name}_affine_routes"] = secs
+        log(f"  msm({name.upper()}, tree='affine') seconds, inversion kernel "
+            + " ".join(f"{t:.4f}" for t in secs["kernel"])
+            + ", product tree and inv_loop "
+            + " ".join(f"{t:.4f}" for t in secs["loop"]))
     return times
 
 
@@ -2120,10 +2388,25 @@ def check_paths(launches, paths):
                              f"{missing}")
 
 
+def check_ab_cases(cases: list) -> None:
+    """--ab: the cases name every kernel of AB_KERNELS and no other, and no
+    (kernel, lanes, operands) twice."""
+    names = collections.Counter(c[0] for c in cases)
+    keys = collections.Counter(c[:3] for c in cases)
+    missing = sorted(set(AB_KERNELS) - set(names))
+    extra = sorted(set(names) - set(AB_KERNELS))
+    twice = sorted(k for k, v in keys.items() if v > 1)
+    if missing or extra or twice:
+        raise AssertionError(f"--ab cases: missing {missing}, not named "
+                             f"{extra}, twice {twice}")
+
+
 def ab_run(dev, bases: list, keep) -> list:
     """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES, the
-    doubles and the Horner kernels of this checkout against those built
-    from each csrc/ directory of `bases`. Every unit they live
+    doubles, the Horner kernels, g2_add_z01 (at 2^16 lanes, Z01_SHAPES and
+    one lane) and the inversion kernels (at the widest of INV_SHAPES and
+    one lane, random operands with zero lanes) of this checkout against
+    those built from each csrc/ directory of `bases`. Every unit they live
     in (kernels.UNITS) is built from each base, one nvcc each, all started
     together with this checkout's flags into a temporary directory, and
     bound through the same wrappers (the C signatures do not change; a
@@ -2140,10 +2423,14 @@ def ab_run(dev, bases: list, keep) -> list:
     for ab_fields; a fields.cu with the earlier C interface is bound as a
     StageRoute."""
     import tempfile
+    import torch
     from zkrollup_torch import kernels
     from zkrollup_torch.curve import cuda_curve
     from zkrollup_torch.curve.g1 import G1
     from zkrollup_torch.curve.g2 import G2
+    from zkrollup_torch.curve.weierstrass import FqOps, Fq2Ops
+    from zkrollup_torch.fields import cuda_mont
+    from zkrollup_torch.fields.mont import FQ
 
     libs = kernels.load()
     curves = {"g1": G1, "g2": G2}
@@ -2213,6 +2500,29 @@ def ab_run(dev, bases: list, keep) -> list:
                 f"W={HORNER_W}, c={HORNER_C}"]
             cases.append((f"{g}_horner", 1, "phase 2", curve,
                           cuda_curve.horner, horner_plain_host, (wsum, c)))
+        fn, plain, args, _ = ops["g2"]["g2_add_z01"]
+        for m in (1 << 16, *Z01_SHAPES["g2_add_z01"], 1):
+            sub, _ = take_lanes(G2, args, m, 5 if m == 1 else 0)
+            cases.append(("g2_add_z01", m, "phase 2", G2, fn, plain, sub))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 3)
+
+        def rand_fe(n):
+            a = torch.randint(0, 1 << 16, (n, 16), generator=gen,
+                              device=dev, dtype=torch.int32)
+            a[:, 15] &= 0x0FFF
+            return a
+
+        for name, (big, _) in INV_SHAPES.items():
+            F = FqOps if name == "inv[fq]" else Fq2Ops
+            plain = ((lambda F, a: cuda_mont.inv_plain(FQ, a))
+                     if F is FqOps else
+                     (lambda F, a: cuda_mont.inv_fq2_plain(FQ, a)))
+            for m in (big, 1):
+                cases.append((name, m, "random", F, lambda F, a: F.inv(a),
+                              plain, (inv_operand(rand_fe, name, m,
+                                                  edges=m > 1),)))
+        check_ab_cases(cases)
 
         own = dict(libs)
         runs = [{"base": base, "rows": []} for base in bases]

@@ -2,10 +2,11 @@
 
 Each kernel wrapper against its plain PyTorch version on the same CUDA
 tensors, bit for bit (the NTT pass with every prologue and epilogue, the
-lazy-sum fold, the gathered mont_mul, the doubles on ragged launches, the
-Horner kernels on its edge cases and against the route of one double or
-add launch a step, and the integer-unit kernels of tools/profile_alu.py
-too); the NTT, the quotient, the MSM window sums and the general MSM on
+lazy-sum fold, the gathered mont_mul, the Fq and Fq2 inversions and
+batch_inverse's one launch, the paired g2_add_z01's warp vote, the doubles
+on ragged launches, the Horner kernels on its edge cases and against the
+route of one double or add launch a step, and the integer-unit kernels of
+tools/profile_alu.py too); the NTT, the quotient, the MSM window sums and the general MSM on
 the card against the same functions on the CPU, one Horner launch and no
 double a msm() call; the
 bucket strategies and the GLV MSM against the native engine; the G2
@@ -414,6 +415,90 @@ def _z01_operand(curve, q):
                          curve.leaves(neg_q)):
         d[0], d[1], d[2], d[4] = s0[0], s1[1], 0, 0
     return z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VOTE_CASES + ["one_p_minus_p", "wide"])
+def test_g2_add_z01_vote_matches_plain(cuda_device, case):
+    """g2_add_z01 on thread pairs runs the affine double only in warps (16
+    lanes) with a P == Q lane of finite points: the vote cases against q
+    and _z01_operand's Z in {0, 1} points, a warp of distinct pairs with
+    one P + (-P) lane, and 1,441,792 lanes (the msm paths' leaf level:
+    every case repeated); bit for bit against the plain version."""
+    curve, _, q = _point_operands("g2", cuda_device)
+    z01 = _z01_operand(curve, q)
+    if case == "wide":
+        idx = torch.arange(1_441_792, device=cuda_device) % N
+    elif case == "one_p_minus_p":
+        idx = torch.tensor(_vote_lanes("one_p_plus_p", 16), device=cuda_device)
+        idx[idx == 0] = 1
+    else:
+        idx = torch.tensor(_vote_lanes(case, 16), device=cuda_device)
+    sub = [curve.map(lambda a: a.index_select(0, idx), t) for t in (z01, q)]
+    got, want = (curve.leaves(f(curve, *sub))
+                 for f in (cuda_curve.add_z01, cuda_curve.add_z01_plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _inv_operand(n, seed, device):
+    """n canonical Fq values, Montgomery form: random, 0, 1, q - 1 and
+    R mod q in rows 1-4, every third lane of the first 64 zero, and zero
+    the lanes of thread 1 at 16 lanes a thread (lanes 1 + j T, T the
+    thread count)."""
+    vals = _values(FQ.p, n, seed)
+    vals[1:5] = [0, 1, FQ.p - 1, FQ.r_mod_p][:max(0, n - 1)]
+    T = -(-n // 16)
+    for i in list(range(0, min(n, 64), 3)) + list(range(min(1, T - 1), n,
+                                                        T)):
+        vals[i] = 0
+    return _limbs(vals, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fq", "fq2"])
+@pytest.mark.parametrize("n", [1, 22, 33, 1025, 482_413])
+def test_inv_kernels_match_plain(cuda_device, kind, n):
+    """inv[fq] (FQ.mont_inv) and inv[fq2] (fq2.inv) on CUDA tensors: one
+    launch each, bit for bit against the plain versions (Fermat over the
+    plain product) on one lane, ragged launches and the setup's G1 width;
+    zero lanes map to zero."""
+    from zkrollup_torch import kernels
+    from zkrollup_torch.fields import fq2
+    a0 = _inv_operand(n, 7, cuda_device)
+    kernels.reset_launches()
+    if kind == "fq":
+        got = [FQ.mont_inv(a0)]
+        want = [cuda_mont.inv_plain(FQ, a0)]
+    else:
+        a1 = _inv_operand(n, 8, cuda_device)
+        a1[5::7] = 0
+        got = list(fq2.inv((a0, a1)))
+        want = list(cuda_mont.inv_fq2_plain(FQ, (a0, a1)))
+    assert kernels.LAUNCHES[f"inv[{kind}]"] == 1
+    assert kernels.LAUNCHES["mont_mul[fq]"] == 0
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_batch_inverse_on_cuda_is_one_launch(cuda_device, name):
+    """weierstrass.batch_inverse on CUDA: one inversion launch over the m
+    lanes (no product tree, no padding), the limbs of the plain product
+    tree on the CPU."""
+    from zkrollup_torch import kernels
+    from zkrollup_torch.curve import weierstrass as W
+    F = W.FqOps if name == "g1" else W.Fq2Ops
+    m = 1000
+    leaves = [_limbs([v or 1 for v in _values(FQ.p, m, 9 + k)], "cpu")
+              for k in range(len(F.leaves(F.zeros((1,), "cpu"))))]
+    d = F.from_leaves(leaves)
+    want = F.leaves(W.batch_inverse(F, d))
+    kernels.reset_launches()
+    got = F.leaves(W.batch_inverse(F, F.from_leaves(
+        [a.to(cuda_device) for a in leaves])))
+    assert kernels.LAUNCHES["inv[fq]" if name == "g1" else "inv[fq2]"] == 1
+    assert kernels.LAUNCHES["mont_mul[fq]"] == 0
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -100,14 +100,19 @@ def _mixed_add(curve, p, q_affine):
     return curve.select(q_inf, p, out)
 
 
+# the P + (-P) lanes of _z01_operands
+Z01_OPPOSITE = (1, 8)
+
+
 def _z01_operands(seed):
-    """(p, q, affine p, affine q), every Z in {0, 1}. Lanes: 0 P + P,
-    1 P + (-P), 2 inf + Q, 3 P + inf, 4 inf + inf, the rest random."""
+    """(p, q, affine p, affine q), every Z in {0, 1}. Lanes: 0 and 6
+    P + P, 1 P + (-P) and 8 (-Q) + Q, 2 and 13 inf + Q, 3 and 11 P + inf,
+    4 inf + inf, the rest random (10 inf + inf)."""
     pa, qa = _points(N, seed), _points(N, seed + 1)
-    pa[0] = qa[0]
-    pa[1] = ref.g1_neg(qa[1])
+    pa[0], pa[6] = qa[0], qa[6]
+    pa[1], pa[8] = ref.g1_neg(qa[1]), ref.g1_neg(qa[8])
     pa[3] = ref.g1_mul(ref.G1_GEN, 99)
-    pa[2], qa[3], pa[4], qa[4] = None, None, None, None
+    pa[2], qa[3], pa[4], qa[4], qa[11], pa[13] = (None,) * 6
     return g1.pack_jacobian_host(pa), g1.pack_jacobian_host(qa), pa, qa
 
 
@@ -286,14 +291,15 @@ def test_add_nd_matches_generic_and_ref():
 @pytest.mark.parametrize("seed", [37, 41])
 def test_add_z01_matches_generic_and_ref(seed):
     """Both operands with Z in {0, 1}; every special lane. Limb for limb on
-    every lane but P + (-P) (lane 1), where only Z is zeroed (the generic
-    formula gives (0, 0, 0)): there as affine points."""
+    every lane but P + (-P) (lanes 1 and 8), where only Z is zeroed (the
+    generic formula gives (0, 0, 0)): there as affine points."""
     p, q, pa, qa = _z01_operands(seed)
     got = g1.G1.add_z01(p, q)
     want = jax.jit(g1_jax.G1._add_z01_generic)(_jax(p), _jax(q))
-    keep = np.arange(N) != 1
+    keep = ~np.isin(np.arange(N), Z01_OPPOSITE)
     assert _limbs_equal(got, want, keep)
-    assert np.array_equal(got[2][1].numpy(), np.zeros(16, np.int32))
+    for k in Z01_OPPOSITE:
+        assert np.array_equal(got[2][k].numpy(), np.zeros(16, np.int32))
     assert g1.to_affine_host(got) == _sums(pa, qa)
     assert g1.to_affine_host(tuple(np.asarray(w) for w in want)) == \
         _sums(pa, qa)

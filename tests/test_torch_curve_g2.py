@@ -2,9 +2,9 @@
 (JAX): the unified add, the add without the doubling path, the add of Z in
 {0, 1} operands and the no-double mixed add against the generic
 weierstrass G2 formulas and zkrollup.ref affine arithmetic; the rule
-g2_madd's warp vote relies on (the doubling path is needed only on P == Q
-lanes of finite points) against madd_plain, the generic formula and
-zkrollup_torch.ref.
+g2_madd's and g2_add_z01's warp votes rely on (the doubling path is needed
+only on P == Q lanes of finite points) against madd_plain and
+add_z01_plain, the generic formulas and zkrollup_torch.ref.
 
 Exactness as for G1 (test_torch_curve.py): Jacobian limbs equal on finite
 lanes, Z equal everywhere. The G2 add_z01 kernel has no Pallas
@@ -131,6 +131,76 @@ def test_add_z01_matches_generic_and_ref():
 
 # lanes of the vote cases: more than one 16-lane warp of thread pairs
 N_VOTE = 20
+
+
+def _z01_vote_operands(seed):
+    """(p, q, affine p, affine q) over N_VOTE lanes, every Z in {0, 1}:
+    0 P + P, 1 P + (-P), 2 inf + Q, 3 P + inf, 4 inf + inf, 6 (-Q) + Q,
+    9 inf + inf, 17 P + P in the second warp; the rest distinct pairs."""
+    rng = np.random.RandomState(seed)
+    pt = lambda: ref.g2_mul(ref.G2_GEN, int(rng.randint(1, 1 << 62)))
+    pa, qa = ([pt() for _ in range(N_VOTE)] for _ in range(2))
+    qa[0], qa[17] = pa[0], pa[17]
+    qa[1], pa[6] = ref.g2_neg(pa[1]), ref.g2_neg(qa[6])
+    pa[2], qa[3], pa[4], qa[4], pa[9], qa[9] = (None,) * 6
+    return g2.pack_jacobian_host(pa), g2.pack_jacobian_host(qa), pa, qa
+
+
+def _z01_voted(p, q, warp: int):
+    """G2's z01 add as csrc/curve.cuh:jac_add_z01_voted_lane runs it over
+    Fq2Pair (g2_add_z01): the affine double of p computed only in groups
+    of `warp` lanes where some lane has H = R = 0 with neither operand
+    infinite."""
+    G2 = g2.G2
+    F = G2.F
+    X1, Y1 = p[0], p[1]
+    H, R = F.sub(q[0], X1), F.sub(q[1], Y1)
+    X3, Y3 = cuda_curve._add_xy(F, H, R, X1, Y1)
+    h_zero, r_zero = F.is_zero(H), F.is_zero(R)
+    p_inf, q_inf = F.is_zero(p[2]), F.is_zero(q[2])
+    need = (h_zero & r_zero & ~p_inf & ~q_inf)[:, 0]
+    n = need.shape[0]
+    voted = torch.nn.functional.pad(need, (0, -n % warp)).view(-1, warp)
+    voted = voted.any(dim=1).repeat_interleave(warp)[:n, None]
+    dX, dY = cuda_curve._dbl_xy(F, X1, Y1)
+    out = G2.select(h_zero & r_zero & voted, (dX, dY, F.add(Y1, Y1)),
+                    (X3, Y3, H))
+    return cuda_curve._inf_selects(G2, out, h_zero & ~r_zero & ~p_inf
+                                   & ~q_inf, p, q)
+
+
+@functools.lru_cache(maxsize=None)
+def _z01_vote_case():
+    """_z01_vote_operands(67) and the reference's _add_z01_generic of
+    them, made once for the cases of test_add_z01_doubles_only_where_needed."""
+    p, q, pa, qa = _z01_vote_operands(67)
+    return p, q, pa, qa, jax.jit(g2_jax.G2._add_z01_generic)(_jax(p),
+                                                              _jax(q))
+
+
+@pytest.mark.parametrize("warp", [1, 5, 16])
+def test_add_z01_doubles_only_where_needed(warp):
+    """g2_add_z01's warp vote (16 lanes a warp on thread pairs): with the
+    affine double selected only in groups of `warp` lanes that hold a
+    P == Q lane of finite points, the z01 add equals add_z01_plain limb for
+    limb on every lane (P == Q, P + (-P) and infinity lanes included); both
+    equal the reference's _add_z01_generic limb for limb on every lane but
+    P + (-P), where only Z is zeroed (the generic formula gives (0, 0, 0):
+    there as affine points), and zkrollup_torch.ref on every lane."""
+    p, q, pa, qa, want = _z01_vote_case()
+    got = _z01_voted(p, q, warp)
+    plain = cuda_curve.add_z01_plain(g2.G2, p, q)
+    assert all(torch.equal(a, b) for a, b in
+               zip(g2.G2.leaves(got), g2.G2.leaves(plain)))
+    keep = np.ones(N_VOTE, bool)
+    keep[[1, 6]] = False
+    for gc, wc in zip(got, want):
+        for g, w in zip(gc, wc):
+            assert np.array_equal(g.numpy().astype(np.uint32)[keep],
+                                  np.asarray(w)[keep])
+    assert all(not c[k].any() for c in got[2] for k in (1, 6))
+    assert g2.to_affine_host(got) == [tref.g2_add(a, b)
+                                      for a, b in zip(pa, qa)]
 
 
 def _madd_vote_operands(seed):

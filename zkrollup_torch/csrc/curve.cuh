@@ -1,8 +1,9 @@
 // Jacobian point formulas over Fq (G1) or Fq2 (G2) for the zkrollup_torch
 // CUDA kernels: one lane = one point (double) or one point pair (adds),
 // branch-free but for the warp votes of the doubling path: the add's over
-// FqCall (jac_add_lane) and in the Horner (horner_lane), the mixed add's
-// over every type (jac_madd_lane).
+// FqCall (jac_add_lane) and in the Horner (horner_lane), the z01 add's
+// over Fq2Pair (jac_add_z01_voted_lane), the mixed add's over every type
+// (jac_madd_lane).
 //
 // Replace the point kernels of zkrollup/curve/pallas_curve.py (_add_kernel,
 // _add_nd_kernel, _add_z01_kernel, _make_madd_kernel(False),
@@ -270,9 +271,16 @@ ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i) {
 // U2 = X2, S2 = Y2 and Z3 = H (4 products, 2 squares); the affine double
 // (mdbl) of P through dbl_xy with Z3 = 2 Y1 (1 product, 5 squares); then
 // the selects in the kernel's order. A Z other than 0 or the Montgomery
-// one gives a wrong result.
-template <class E>
-ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i) {
+// one gives a wrong result. With VOTE a warp computes the double and its
+// selects only if one of its lanes has H = R = 0 with neither operand
+// infinite (jac_add's rule; every lane's result is the same), and every
+// thread of the warp must reach the vote: jac_add_z01_voted_lane, the
+// lane of g2.cu's paired kernel, which clamps its lane index. g1.cu's
+// one-thread kernel over Fq returns past the ragged edge and does not
+// vote.
+template <class E, bool VOTE = false>
+ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i,
+                             bool live = true) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
@@ -288,7 +296,9 @@ ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i) {
   const bool h_zero = H.is_zero(), r_zero = R.is_zero();
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool same = h_zero && r_zero;
-  {
+  bool doubling = true;
+  if constexpr (VOTE) doubling = any_in_warp(same && !p_inf && !q_inf);
+  if (doubling) {
     E dX, dY;
     dbl_xy(dX, dY, X1, Y1);
     X3 = E::select(same, dX, X3);
@@ -297,7 +307,16 @@ ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i) {
   }
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
-  store3(args, i, true, X3, Y3, Z3);
+  store3(args, i, live, X3, Y3, Z3);
+}
+
+// jac_add_z01_lane with its doubling path voted per warp, for a kernel
+// that clamps its lane index past the ragged edge (g2.cu's
+// jac_add_z01_pair_kernel over Fq2Pair).
+template <class E>
+ZKT_HD void jac_add_z01_voted_lane(const PointArgs& args, int64_t i,
+                                   bool live) {
+  jac_add_z01_lane<E, true>(args, i, live);
 }
 
 // The madd-2007-bl add path of P (Jacobian) + (x2, y2) taken with Z2 = 1:

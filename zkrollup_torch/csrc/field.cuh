@@ -15,9 +15,9 @@
 // (mad.lo.cc / madc.hi.cc), so no 64-bit emulation or carry tests in
 // C++ sit on the critical path; every operation is branch-free.
 //
-// Fq2 here computes a whole G2 lane in one thread: the type of g2_add_nd
-// and g2_add_z01. g2_add, g2_madd_nd, g2_madd, g2_double and g2_horner
-// use Fq2Pair (fq2_pair.cuh) instead, one lane on two threads, one
+// Fq2 here computes a whole G2 lane in one thread: the type of g2_add_nd.
+// g2_add, g2_madd_nd, g2_madd, g2_double, g2_add_z01 and g2_horner use
+// Fq2Pair (fq2_pair.cuh) instead, one lane on two threads, one
 // Montgomery reduction an Fq2 product. g1_add, g1_madd_nd, g1_madd,
 // g1_double and g1_horner use FqCall (fq_call.cuh): Fq with its product
 // called, not inlined.

@@ -4,6 +4,9 @@
 //   ntt_pass (Fr)               replaces fields/pallas_mont.py:butterfly
 //   fold (Fr)                   no Pallas kernel: the carry pass and the
 //                               two-product fold of groth16/prove.py:_spmv
+//   inv<Fq>, inv<Fq2>           no Pallas kernel: the Fermat inversion of
+//                               zkrollup/fields/mont.py:159 (mont_pow_const,
+//                               a chain of mont_mul) and fq2.py:51 (inv)
 //
 // Storage at every boundary is (n, 16) int32 rows of 16-bit limbs; in
 // registers and shared memory a value is 8 packed 32-bit words.
@@ -36,6 +39,25 @@
 // -> V mod r, the carries propagated in 64-bit registers, then
 // lo * R * R^-1 + hi * R^2 * R^-1 with lo = V mod 2^256, hi = V >> 256.
 // Bound by device memory: 128 B read and 64 B written a row.
+//
+// inv: a^-1 of every lane in the Montgomery domain (aR -> a^-1 R,
+// canonical), 0 -> 0, over Fq (inv[fq]) and over Fq2 through the Fq
+// inverse of the norm, 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2)
+// (inv[fq2]). The route it replaces launched mont_mul once per product of
+// the exponent chain, 362 dependent launches a call, and inverted each
+// lane on its own. Here a thread takes INV_PER_THREAD lanes, t, t + T, ...
+// (T threads: a warp's loads are contiguous rows), and inverts them by
+// Montgomery's trick: the prefix products forward, kept in the output rows
+// (re-read on the back sweep from L2); ONE inversion of their product,
+// a^(q - 2) square-and-multiply over the fixed exponent in registers (253
+// squares, 109 products); then back, inv_j = acc prefix_{j-1} and
+// acc = acc a_j. A zero lane enters the product as one and stores zero.
+// Products: 3 a lane over Fq, 7 over Fq2 (the norm 2, back 2, the two
+// coordinates 2; the norm waits in the second output row between the
+// sweeps), plus 362 a thread. Bound by the integer multiplier: at 16
+// lanes a thread about 25 products a lane (29 over Fq2) against 64 B (128
+// B) of values read and written; one lane is one thread's chain of 362
+// dependent products, bound by its latency.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -198,6 +220,136 @@ fold_fr_kernel(const int64_t* __restrict__ sums,
       .store(out + i * 16);
 }
 
+// Lanes a thread: more buy fewer chains a lane and fewer threads to hide
+// a chain's latency. On an H100 (chip_smoke.py --ab) 8 ran inv[fq] 2.5x
+// slower at the setup's 482,413 lanes and inv[fq2] 1.13x faster at 2^17;
+// 32 ran 1.24x faster and 1.36x slower there. 16 sums least over the
+// setup's two launches.
+constexpr int INV_THREADS = 128;
+constexpr int INV_PER_THREAD = 16;
+
+// The product of the inversion's chain and sweeps: Fq's, inlined (called,
+// as FqCall's, it ran as fast at 482,413 lanes and 6% slower on one lane:
+// chip_smoke.py --ab).
+ZKT_HD Fq inv_mul(const Fq& a, const Fq& b) { return Fq::mul(a, b); }
+
+// a^(q - 2) = a^-1 in the Montgomery domain (aR -> a^-1 R, canonical for
+// a canonical), left to right over the fixed exponent's bits: 253 squares
+// and 109 products, the same branch on every thread.
+ZKT_HD Fq pow_q_minus_2(const Fq& a) {
+  static_assert(FqParams::P0 >= 2u && (FqParams::P7 >> 29) == 1u,
+                "q - 2 borrows nothing and has its top bit at bit 253");
+  const uint32_t e[NW] = {FqParams::P0 - 2u, FqParams::P1, FqParams::P2,
+                          FqParams::P3,      FqParams::P4, FqParams::P5,
+                          FqParams::P6,      FqParams::P7};
+  Fq acc = a;  // bit 253
+#pragma unroll
+  for (int w = NW - 1; w >= 0; --w) {
+#pragma unroll 1
+    for (int b = w == NW - 1 ? 28 : 31; b >= 0; --b) {
+      acc = inv_mul(acc, acc);
+      if ((e[w] >> b) & 1u) acc = inv_mul(acc, a);
+    }
+  }
+  return acc;
+}
+
+// R mod q: one in the Montgomery domain, the stand-in of a zero lane.
+ZKT_HD Fq fq_mont_one() {
+  return {{0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u, 0x7879462cu,
+           0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}};
+}
+
+struct InvArgs {
+  const int32_t* in[2];  // the lanes' (n, 16) planes: c0, and c1 over Fq2
+  int32_t* out[2];       // the inverses' planes; out[0] holds the prefixes
+};
+
+// What inv_kernel inverts a lane through (its key: an Fq value, zero only
+// for a zero lane) and how the lane's inverse follows from the key's.
+template <class E>
+struct InvLane;
+
+// Over Fq the key is the lane's value.
+template <>
+struct InvLane<Fq> {
+  static __device__ Fq key(const InvArgs& g, int64_t i) {
+    return Fq::load(g.in[0] + i * 16);
+  }
+  static __device__ void stash(const InvArgs&, int64_t, const Fq&) {}
+  static __device__ Fq again(const InvArgs& g, int64_t i) { return key(g, i); }
+  static __device__ void finish(const InvArgs& g, int64_t i, const Fq& kinv) {
+    kinv.store(g.out[0] + i * 16);
+  }
+};
+
+// Over Fq2 the key is the norm a0^2 + a1^2, zero only for a = 0 (-1 is
+// not a square mod q), kept in out[1] from the forward sweep to the back
+// sweep; the inverse is (a0 n^-1, -(a1 n^-1)), fq2.py:inv's.
+template <>
+struct InvLane<Fq2> {
+  static __device__ Fq key(const InvArgs& g, int64_t i) {
+    const Fq a0 = Fq::load(g.in[0] + i * 16), a1 = Fq::load(g.in[1] + i * 16);
+    return Fq::add(inv_mul(a0, a0), inv_mul(a1, a1));
+  }
+  static __device__ void stash(const InvArgs& g, int64_t i, const Fq& k) {
+    k.store(g.out[1] + i * 16);
+  }
+  static __device__ Fq again(const InvArgs& g, int64_t i) {
+    return Fq::load(g.out[1] + i * 16);
+  }
+  static __device__ void finish(const InvArgs& g, int64_t i, const Fq& kinv) {
+    inv_mul(Fq::load(g.in[0] + i * 16), kinv).store(g.out[0] + i * 16);
+    Fq::sub(Fq::zero(), inv_mul(Fq::load(g.in[1] + i * 16), kinv))
+        .store(g.out[1] + i * 16);
+  }
+};
+
+// Thread t of T = ceil(n / INV_PER_THREAD) inverts lanes t + j T < n.
+template <class E>
+__global__ void __launch_bounds__(INV_THREADS)
+inv_kernel(const InvArgs g, int64_t n) {
+  using Lane = InvLane<E>;
+  const int64_t T = (n + INV_PER_THREAD - 1) / INV_PER_THREAD;
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  const int cnt = int((n - 1 - t) / T) + 1;
+  const Fq one = fq_mont_one();
+
+  // forward: prefix_j = x_0 ... x_j, x_j the key or one, into out[0]
+  Fq acc = one;
+#pragma unroll 1
+  for (int j = 0; j < cnt; ++j) {
+    const int64_t i = t + j * T;
+    const Fq k = Lane::key(g, i);
+    Lane::stash(g, i, k);
+    const Fq x = Fq::select(k.is_zero(), one, k);
+    acc = j ? inv_mul(acc, x) : x;
+    acc.store(g.out[0] + i * 16);
+  }
+  Fq inv = pow_q_minus_2(acc);  // (x_0 ... x_{cnt-1})^-1
+  // back: inv is (x_0 ... x_j)^-1 on entry to step j
+#pragma unroll 1
+  for (int j = cnt - 1; j > 0; --j) {
+    const int64_t i = t + j * T;
+    const Fq k = Lane::again(g, i);
+    const bool zero = k.is_zero();
+    const Fq kinv = inv_mul(inv, Fq::load(g.out[0] + (i - T) * 16));
+    inv = inv_mul(inv, Fq::select(zero, one, k));
+    Lane::finish(g, i, Fq::select(zero, Fq::zero(), kinv));
+  }
+  Lane::finish(g, t, Fq::select(Lane::again(g, t).is_zero(), Fq::zero(), inv));
+}
+
+template <class E>
+int launch_inv(const InvArgs& g, int64_t n, void* stream) {
+  if (n > 0)
+    inv_kernel<E><<<blocks_for((n + INV_PER_THREAD - 1) / INV_PER_THREAD,
+                               INV_THREADS),
+                    INV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(g, n);
+  return int(cudaGetLastError());
+}
+
 template <class F>
 int launch_mont_mul(const void* a, const void* b, const void* b_idx,
                     int b_bcast, void* out, int64_t n, void* stream) {
@@ -224,6 +376,22 @@ int zkt_mont_mul_fr(const void* a, const void* b, const void* b_idx,
 int zkt_mont_mul_fq(const void* a, const void* b, const void* b_idx,
                     int b_bcast, void* out, int64_t n, void* stream) {
   return zkt::launch_mont_mul<zkt::Fq>(a, b, b_idx, b_bcast, out, n, stream);
+}
+
+// a^-1 of n Fq lanes (0 -> 0), Montgomery form in and out.
+int zkt_inv_fq(const void* a, void* out, int64_t n, void* stream) {
+  const zkt::InvArgs g{{static_cast<const int32_t*>(a), nullptr},
+                       {static_cast<int32_t*>(out), nullptr}};
+  return zkt::launch_inv<zkt::Fq>(g, n, stream);
+}
+
+// a^-1 of n Fq2 lanes (a0, a1) -> (out0, out1) (0 -> 0).
+int zkt_inv_fq2(const void* a0, const void* a1, void* out0, void* out1,
+                int64_t n, void* stream) {
+  const zkt::InvArgs g{
+      {static_cast<const int32_t*>(a0), static_cast<const int32_t*>(a1)},
+      {static_cast<int32_t*>(out0), static_cast<int32_t*>(out1)}};
+  return zkt::launch_inv<zkt::Fq2>(g, n, stream);
 }
 
 // Stages s0 .. s0 + k - 1 (k <= NTT_TILE_LOG) over `batch` transforms of n

@@ -1,8 +1,8 @@
 // Fq2Pair: an Fq2 value of one G2 lane spread over two adjacent threads of
 // a warp (lanes 2j and 2j+1), for the paired point kernels of points.cuh
-// (jac_add, jac_madd_nd, jac_madd and jac_double over Fq2: g2_add,
-// g2_madd_nd, g2_madd and g2_double) and the G2 Horner (g2_horner: every
-// pair of its one warp on the same chain).
+// (jac_add, jac_madd_nd, jac_madd, jac_double and jac_add_z01 over Fq2:
+// g2_add, g2_madd_nd, g2_madd, g2_double and g2_add_z01) and the G2
+// Horner (g2_horner: every pair of its one warp on the same chain).
 //
 // Replaces, for those kernels, the Fq2 layer of
 // zkrollup/curve/pallas_curve_g2.py (_k2_mul, _k2_sqr) that Fq2 in

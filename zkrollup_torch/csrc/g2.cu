@@ -1,9 +1,9 @@
-// The G2 point kernels (over Fq2): g2_add, g2_madd_nd, g2_madd and
-// g2_double on the paired Fq2 type, two threads a lane
+// The G2 point kernels (over Fq2): g2_add, g2_madd_nd, g2_madd,
+// g2_double and g2_add_z01 on the paired Fq2 type, two threads a lane
 // (jac_add_pair_kernel, jac_madd_nd_pair_kernel, jac_madd_pair_kernel,
-// jac_double_pair_kernel), and the MSM's Horner on it (g2_horner_kernel,
-// one warp); g2_add_nd and g2_add_z01 over Fq2, one thread a lane. Built
-// by its own nvcc, beside g1.cu, fields.cu and alu.cu.
+// jac_double_pair_kernel, jac_add_z01_pair_kernel), and the MSM's Horner
+// on it (g2_horner_kernel, one warp); g2_add_nd over Fq2, one thread a
+// lane. Built by its own nvcc, beside g1.cu, fields.cu and alu.cu.
 //
 // The paired kernels' launch bounds (PAIR_THREADS, PAIR_MIN_BLOCKS in
 // points.cuh) are set from ptxas -v for sm_90a (chip_smoke.py phase 1): no
@@ -15,8 +15,13 @@
 // stack frame; at (128, 4) all three spill (120, 80 and 24 bytes). The
 // one-thread jac_add<Fq2> took 255 and spilled 172 bytes, jac_madd_nd<Fq2>
 // 255 and 16, jac_madd<Fq2> 255 and 20. chip_smoke.py phase 1 fails if a
-// paired kernel spills. The double went onto thread pairs last: one
-// thread computing it over Fq2 took 137 registers.
+// paired kernel spills. The double went onto thread pairs next: one
+// thread computing it over Fq2 took 137 registers. The z01 add
+// (g2_add_z01, the Jacobian merge tree's leaf level: 22 windows x 2^16
+// lanes on the msm paths) went last: over Fq2 on one thread it took 255
+// registers and spilled 60 bytes; on pairs (jac_add_z01_pair_kernel) it
+// takes 168 at (128, 3) with no spill, its doubling path (the a and b2
+// tables' duplicates) voted per 16-lane warp (jac_add_z01_voted_lane).
 #include "points.cuh"
 
 namespace zkt {
@@ -24,6 +29,7 @@ ZKT_PAIR_KERNEL(jac_add_pair_kernel, jac_add_lane)
 ZKT_PAIR_KERNEL(jac_madd_nd_pair_kernel, jac_madd_nd_lane)
 ZKT_PAIR_KERNEL(jac_madd_pair_kernel, jac_madd_lane)
 ZKT_PAIR_KERNEL(jac_double_pair_kernel, jac_double_lane)
+ZKT_PAIR_KERNEL(jac_add_z01_pair_kernel, jac_add_z01_voted_lane)
 ZKT_HORNER_KERNEL(g2_horner_kernel, Fq2Pair, 2)
 }  // namespace zkt
 
@@ -31,8 +37,7 @@ ZKT_POINT_API(g2, add, zkt::launch_pair, zkt::jac_add_pair_kernel, 2)
 ZKT_POINT_API(g2, madd_nd, zkt::launch_pair, zkt::jac_madd_nd_pair_kernel, 2)
 ZKT_POINT_API(g2, add_nd, zkt::launch_point<zkt::Fq2>,
               zkt::jac_add_nd_kernel<zkt::Fq2>, 2)
-ZKT_POINT_API(g2, add_z01, zkt::launch_point<zkt::Fq2>,
-              zkt::jac_add_z01_kernel<zkt::Fq2>, 2)
+ZKT_POINT_API(g2, add_z01, zkt::launch_pair, zkt::jac_add_z01_pair_kernel, 2)
 ZKT_POINT_API(g2, madd, zkt::launch_pair, zkt::jac_madd_pair_kernel, 2)
 ZKT_POINT_API(g2, double, zkt::launch_pair, zkt::jac_double_pair_kernel, 1)
 ZKT_HORNER_API(g2, zkt::Fq2Pair, zkt::g2_horner_kernel)

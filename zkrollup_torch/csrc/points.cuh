@@ -1,10 +1,11 @@
 // The zkrollup_torch point kernels: the lanes of curve.cuh over the
 // coordinate field E, one launch function each. Three are templates over E
-// (Fq, or FqCall for the double, in g1.cu; Fq2 in g2.cu, which builds two
-// of them); the add and both mixed adds are built over FqCall
+// (Fq, or FqCall for the double, in g1.cu; Fq2 in g2.cu, which builds one
+// of them, g2_add_nd); the add and both mixed adds are built over FqCall
 // (fq_call.cuh, one thread a G1 lane, g1.cu's g1_add, g1_madd_nd and
 // g1_madd) and over Fq2Pair (two threads a G2 lane, g2.cu's g2_add,
-// g2_madd_nd and g2_madd), and so is the double over Fq2Pair (g2_double).
+// g2_madd_nd and g2_madd), and so are the double and the z01 add over
+// Fq2Pair (g2_double, g2_add_z01).
 // The Horner kernels run the MSM's whole combine on one warp (g1_horner
 // over FqCall, g2_horner over Fq2Pair).
 //
@@ -13,8 +14,9 @@
 //                   pallas_curve_g2.py:g2_add
 //   jac_add_nd<E>   replaces pallas_curve.py:g1_add_nd (_add_nd_kernel) and
 //                   pallas_curve_g2.py:g2_add_nd
-//   jac_add_z01<E>  replaces pallas_curve.py:g1_add_z01 (_add_z01_kernel);
-//                   over Fq2 it replaces the XLA glue of
+//   jac_add_z01<E>  replaces pallas_curve.py:g1_add_z01 (_add_z01_kernel)
+//                   over Fq; over Fq2Pair (jac_add_z01_pair, its doubling
+//                   path voted per warp) the XLA glue of
 //                   weierstrass.py:_add_z01_generic, which has no Pallas
 //                   kernel (it differs from that glue in limbs on P + (-P)
 //                   lanes only, where the kernel zeroes Z alone)
@@ -53,9 +55,9 @@
 // of 16 int32 limbs, half of each word zero. The kernels are branch-free,
 // so every lane also computes the doubling path, but for g1_add, g1_madd,
 // g2_madd and the Horner's add, which compute it only in warps that need
-// it. At 64 multiplies per SM per clock every point kernel is
-// multiply-bound on the packed bytes; the G1 double and the G1 add_z01
-// come closest to the balance point.
+// it, and g2_add_z01, which votes it per warp. At 64 multiplies per SM
+// per clock every point kernel is multiply-bound on the packed bytes; the
+// G1 double and the G1 add_z01 come closest to the balance point.
 //
 // The Horner kernels are the exception: one chain of W c doubles and W
 // adds (c = 12, W = 22 on the MSM's 256-bit scalars: 264 doubles, 22 adds)
@@ -71,12 +73,12 @@
 // warps, each on a long serial chain of 3 CIOS products an Fq2 product.
 // The one-thread kernels cap blocks at 128 threads (__launch_bounds__) and
 // accept the spill: it stays in L1 and no intermediate goes to device
-// memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> and
-// jac_add_z01<Fq2> 255 registers and 60 bytes of spill stores each;
-// over Fq jac_add_nd 142 and jac_add_z01 127, neither spilling.
-// jac_add<Fq2>, jac_madd_nd<Fq2> and jac_madd<Fq2>, which g2.cu no
-// longer builds, took 255 and spilled 172, 16 and 20 bytes, and
-// jac_double<Fq2> 137 with no spill; jac_add<Fq>, jac_madd_nd<Fq>,
+// memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> 255
+// registers and 60 bytes of spill stores; over Fq jac_add_nd 142 and
+// jac_add_z01 127, neither spilling. jac_add<Fq2>, jac_madd_nd<Fq2>,
+// jac_madd<Fq2> and jac_add_z01<Fq2>, which g2.cu no longer builds, took
+// 255 and spilled 172, 16, 20 and 60 bytes, and jac_double<Fq2> 137 with
+// no spill; jac_add<Fq>, jac_madd_nd<Fq>,
 // jac_madd<Fq> and jac_double<Fq>, which g1.cu no longer builds, 131,
 // 123, 128 and 64.) Over FqCall, its product called, the G1 kernels fit
 // without spill at the launch bounds of g1.cu, whose comment gives their

@@ -7,9 +7,10 @@ field elements, Z == 0 encodes infinity. `add`, `add_nd`, `add_z01`,
 cuda_curve.py, which run the plain PyTorch formulas on CPU tensors. The
 field ops `mul` and `sqr` below serve those plain formulas: their product
 is the plain PyTorch Montgomery multiply on every device, so a plain point
-op launches no kernel. `kmul`, `ksqr` and `inv` take the mont_mul kernel
-wrapper instead; they serve the batched affine add of the MSM's affine
-merge tree (`batch_inverse`, `affine_add_batch`).
+op launches no kernel. `kmul` and `ksqr` take the mont_mul kernel wrapper
+instead, and `inv` the inversion kernel's (inv[fq], inv[fq2]); they serve
+the batched affine add of the MSM's affine merge tree (`batch_inverse`,
+`affine_add_batch`).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ class FqOps:
     def sqr(a):
         return _fq_mul(a, a)
 
-    # on the mont_mul kernel (its plain version on CPU tensors)
+    # on the mont_mul and inv[fq] kernels (their plain versions on CPU
+    # tensors)
     kmul = staticmethod(FQ.mont_mul)
     inv = staticmethod(FQ.mont_inv)
 
@@ -84,7 +86,8 @@ class Fq2Ops:
     def sqr(a):
         return fq2.sqr(a, _fq_mul)
 
-    # on the mont_mul kernel (its plain version on CPU tensors)
+    # on the mont_mul and inv[fq2] kernels (their plain versions on CPU
+    # tensors)
     kmul = staticmethod(fq2.mul)
     ksqr = staticmethod(fq2.sqr)
     inv = staticmethod(fq2.inv)
@@ -113,13 +116,23 @@ def _fmap(F, fn, *xs):
 
 
 def batch_inverse(F, d):
-    """Batched field inversion with ONE Fermat inversion
-    (weierstrass.py:batch_inverse): a log-depth product tree, m - 1
-    products up and 2(m - 1) down, Montgomery's trick made parallel. d: a
-    batch (m, 16) of nonzero field elements (callers set zero lanes to
-    one); a length that is not a power of two is padded with ones. Every
-    product is one mont_mul launch over the level; the one inversion is
-    ~380 launches on one lane (FQ.mont_inv)."""
+    """Batched field inversion (weierstrass.py:batch_inverse). d: a batch
+    (m, 16) of nonzero field elements (callers set zero lanes to one). On
+    CUDA one launch of the inversion kernel over the m lanes (F.inv:
+    inv[fq] or inv[fq2], Montgomery's trick inside each thread, no padding);
+    on the CPU its plain version, batch_inverse_tree. The inverse is unique,
+    so the two give the same canonical limbs."""
+    if F.leaves(d)[0].device.type == "cpu":
+        return batch_inverse_tree(F, d)
+    return F.inv(_fmap(F, lambda a: a.contiguous(), d))
+
+
+def batch_inverse_tree(F, d):
+    """batch_inverse with ONE inversion at the root of a log-depth product
+    tree, m - 1 products up and 2(m - 1) down, Montgomery's trick made
+    parallel (the reference's shape); a length that is not a power of two
+    is padded with ones. Every product is F.kmul over a level, the root's
+    inversion F.inv."""
     m = F.leaves(d)[0].shape[0]
     dev = F.leaves(d)[0].device
     m_pad = 1 << max((m - 1).bit_length(), 0)

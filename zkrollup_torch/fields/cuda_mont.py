@@ -1,14 +1,17 @@
-"""Montgomery multiply, NTT passes and the lazy-sum fold: CUDA kernel
-wrappers + plain versions.
+"""Montgomery multiply, NTT passes, the lazy-sum fold and the Fq and Fq2
+inversion: CUDA kernel wrappers + plain versions.
 
-Counterpart of zkrollup/fields/pallas_mont.py. The kernels are
-csrc/fields.cu (mont_mul_kernel<Fr|Fq>, ntt_pass_kernel, fold_fr_kernel),
-built and launched through zkrollup_torch.kernels. A wrapper runs its plain
-PyTorch version when its tensors lie on the CPU, and launches its kernel
-(or raises) when they lie on a CUDA device.
+Counterpart of zkrollup/fields/pallas_mont.py, and of the Fermat inversion
+of zkrollup/fields/mont.py and fq2.py (no Pallas kernel). The kernels are
+csrc/fields.cu (mont_mul_kernel<Fr|Fq>, ntt_pass_kernel, fold_fr_kernel,
+inv_kernel<Fq|Fq2>), built and launched through zkrollup_torch.kernels. A
+wrapper runs its plain PyTorch version when its tensors lie on the CPU,
+and launches its kernel (or raises) when they lie on a CUDA device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -114,6 +117,22 @@ def ntt_pass_plain(field, x: torch.Tensor, tw: torch.Tensor, s0: int,
     return out
 
 
+def inv_plain(field, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 of every row (Montgomery domain, 0 -> 0): Fermat, a^(p - 2)
+    through field.mont_pow_const over the plain product."""
+    return field.mont_pow_const(a, field.p - 2,
+                                functools.partial(mont_mul_plain, field))
+
+
+def inv_fq2_plain(field, a):
+    """1/(a0 + a1 u) = (a0 n^-1, -(a1 n^-1)) with n = a0^2 + a1^2 (fq2.py:
+    inv): one Fermat inversion of the norm, every product plain."""
+    mul = functools.partial(mont_mul_plain, field)
+    a0, a1 = a
+    ninv = inv_plain(field, field.add(mul(a0, a0), mul(a1, a1)))
+    return (mul(a0, ninv), field.sub(torch.zeros_like(a1), mul(a1, ninv)))
+
+
 # -- wrappers -------------------------------------------------------------------
 
 def _on_cpu(*ts) -> bool:
@@ -154,6 +173,42 @@ def mont_mul(field, a: torch.Tensor, b: torch.Tensor,
                    b.data_ptr(), 0 if idx is None else idx.data_ptr(), bcast,
                    out.data_ptr(), n, lanes=n)
     return out
+
+
+def inv(field, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 of every row of a, (..., 16) canonical Fq limbs in Montgomery
+    form; 0 maps to 0. On CUDA one inv[fq] launch (contiguous int32
+    limbs)."""
+    if _on_cpu(a):
+        return inv_plain(field, a)
+    if field.name != "fq":
+        raise ValueError("inv is an Fq kernel")
+    kernels.check_cuda(a, "inv a")
+    out = torch.empty_like(a)
+    n = a.numel() // N_LIMBS
+    kernels.launch("inv[fq]", a.device, a.data_ptr(), out.data_ptr(), n,
+                   lanes=n)
+    return out
+
+
+def inv_fq2(field, a):
+    """1/(a0 + a1 u) of every row of a = (a0, a1), canonical Fq limbs in
+    Montgomery form; 0 maps to 0. On CUDA one inv[fq2] launch (a0 and a1
+    contiguous int32 limbs of one shape)."""
+    a0, a1 = a
+    if _on_cpu(a0, a1):
+        return inv_fq2_plain(field, a)
+    if field.name != "fq":
+        raise ValueError("inv_fq2 is an Fq2 kernel over Fq")
+    kernels.check_cuda(a0, "inv_fq2 a0")
+    kernels.check_cuda(a1, "inv_fq2 a1")
+    if a1.shape != a0.shape or a1.device != a0.device:
+        raise ValueError("inv_fq2: a0 and a1 must share one shape and device")
+    out0, out1 = torch.empty_like(a0), torch.empty_like(a1)
+    n = a0.numel() // N_LIMBS
+    kernels.launch("inv[fq2]", a0.device, a0.data_ptr(), a1.data_ptr(),
+                   out0.data_ptr(), out1.data_ptr(), n, lanes=n)
+    return (out0, out1)
 
 
 def fold(field, sums: torch.Tensor) -> torch.Tensor:

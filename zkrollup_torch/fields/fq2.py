@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from .mont import FQ
-from . import limbs as L
+from . import cuda_mont, limbs as L
 
 
 def add(a, b):
@@ -42,11 +42,10 @@ def sqr(a, mont_mul=FQ.mont_mul):
 
 
 def inv(a):
-    """1/(a0 + a1 u) = conj(a)/(a0^2 + a1^2): one Fermat inversion in Fq,
-    every product on the mont_mul kernel wrapper."""
-    norm = FQ.add(FQ.mont_mul(a[0], a[0]), FQ.mont_mul(a[1], a[1]))
-    ninv = FQ.mont_inv(norm)
-    return (FQ.mont_mul(a[0], ninv), FQ.neg(FQ.mont_mul(a[1], ninv)))
+    """1/(a0 + a1 u) = conj(a)/(a0^2 + a1^2), 0 -> 0: on CUDA one launch of
+    the inv[fq2] kernel, on the CPU its plain version (one Fermat
+    inversion of the norm in Fq)."""
+    return cuda_mont.inv_fq2(FQ, a)
 
 
 def is_zero(a):

@@ -2,10 +2,10 @@
 
 Counterpart of zkrollup/fields/mont.py: R = 2^256, values are (..., 16)
 limb tensors in Montgomery form. Every op takes int32 or int64 limb
-tensors on one device and returns int32. `mont_mul` goes through the CUDA
-kernel wrapper in cuda_mont.py (its plain PyTorch version on CPU tensors),
-and so does neg, a product by -1; add and sub are plain tensor code on
-every device.
+tensors on one device and returns int32. `mont_mul` and `mont_inv` go
+through the CUDA kernel wrappers in cuda_mont.py (their plain PyTorch
+versions on CPU tensors), and so does neg, a product by -1; add and sub
+are plain tensor code on every device.
 """
 
 from __future__ import annotations
@@ -106,26 +106,30 @@ class FieldCtx:
         broadcast b, or b gathered by idx."""
         return cuda_mont.mont_mul(self, a, b, idx)
 
-    def mont_pow_const(self, a, e: int):
+    def mont_pow_const(self, a, e: int, mul=None):
         """a^e (Montgomery domain) for a host exponent e, batched:
         square-and-multiply over e's bits, low to high, every product on
-        mont_mul. The reference multiplies under a mask at every bit
-        (zkrollup/fields/mont.py:159); skipping the zero bits gives the
+        `mul` (mont_mul, the kernel wrapper, by default: one launch a
+        product on CUDA). The reference multiplies under a mask at every
+        bit (zkrollup/fields/mont.py:159); skipping the zero bits gives the
         same canonical limbs."""
+        mul = mul or self.mont_mul
         acc = None
         base = a
         for i in range(e.bit_length()):
             if (e >> i) & 1:
-                acc = base if acc is None else self.mont_mul(acc, base)
+                acc = base if acc is None else mul(acc, base)
             if i + 1 < e.bit_length():
-                base = self.mont_mul(base, base)
+                base = mul(base, base)
         if acc is None:
             return self.one_mont(a.device).expand(a.shape).contiguous()
         return acc
 
     def mont_inv(self, a):
-        """a^-1 via Fermat (a^(p-2)), batched; 0 maps to 0."""
-        return self.mont_pow_const(a, self.p - 2)
+        """a^-1 (a^(p-2)), batched; 0 maps to 0. On CUDA one launch of the
+        inv[fq] kernel (Fq only); on the CPU its plain version, Fermat over
+        the plain product."""
+        return cuda_mont.inv(self, a)
 
     def to_mont(self, a):
         return self.mont_mul(a, self.r2_limbs(a.device))

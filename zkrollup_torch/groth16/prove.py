@@ -198,13 +198,12 @@ def _scalars_cat(w_plain, h_plain, pack) -> torch.Tensor:
 
 
 def _to_host_standard(curve, wsum):
-    """Window sums -> standard form on the device (FQ.from_mont), then ONE
-    device-to-host copy, on the stream without waiting for it on a CUDA
-    device: into pinned host memory, with an event recorded behind it.
-    Returns a function that waits for that event alone and gives the point
-    with numpy leaves."""
-    leaves = torch.stack([FQ.from_mont(a.contiguous())
-                          for a in curve.leaves(wsum)])
+    """Window sums -> standard form on the device (ONE FQ.from_mont over
+    every leaf's rows, stacked), then ONE device-to-host copy, on the
+    stream without waiting for it on a CUDA device: into pinned host
+    memory, with an event recorded behind it. Returns a function that
+    waits for that event alone and gives the point with numpy leaves."""
+    leaves = FQ.from_mont(torch.stack(curve.leaves(wsum)))
     if leaves.device.type != "cuda":
         return lambda: curve.from_leaves(list(leaves.numpy()))
     host = torch.empty(leaves.shape, dtype=leaves.dtype, pin_memory=True)

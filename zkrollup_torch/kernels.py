@@ -51,6 +51,8 @@ _SIGS = {
                  [_P, _P, _P, _I64, _P, _P, ctypes.c_int, _P, _P, _P, _I64,
                   _I64] + [ctypes.c_int] * 4 + [_P]),
     "fold[fr]": ("fields", "zkt_fold_fr", [_P, _P, _P, _P, _I64, _P]),
+    "inv[fq]": ("fields", "zkt_inv_fq", [_P, _P, _I64, _P]),
+    "inv[fq2]": ("fields", "zkt_inv_fq2", [_P, _P, _P, _P, _I64, _P]),
     **{f"{g}_{k}": (g, f"zkt_{g}_{k}", _POINT) for g in ("g1", "g2")
        for k in ("add", "madd_nd", "double", "madd", "add_nd", "add_z01")},
     **{f"{g}_horner": (g, f"zkt_{g}_horner", [_P, _P, _I64, ctypes.c_int,
@@ -84,6 +86,19 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit (PATH or /usr/local/cuda/bin)")
     return path
+
+
+def inv_per_thread() -> int:
+    """The lanes a thread of the inversion kernels (inv[fq], inv[fq2])
+    takes: INV_PER_THREAD, set in csrc/fields.cu and nowhere else."""
+    import re
+    with open(os.path.join(_CSRC, UNITS["fields"])) as f:
+        m = re.search(r"^constexpr int INV_PER_THREAD = (\d+);$", f.read(),
+                      re.M)
+    if m is None:
+        raise RuntimeError("csrc/fields.cu declares no "
+                           "'constexpr int INV_PER_THREAD = <n>;'")
+    return int(m.group(1))
 
 
 def _source_tag() -> str:

@@ -9,7 +9,9 @@ is 32 gathers and 32 mixed adds, batched over a chunk of the table. The
 step's q is affine or infinity, which is madd_z01's contract, so each
 window is one launch of the g1_madd / g2_madd kernel (its doubling path
 makes it correct for every pair). The batch is then normalised to packed
-affine form with one Fermat inversion per point on the mont_mul kernel.
+affine form: its Z coordinates inverted in one launch of the inv[fq] /
+inv[fq2] kernel (Montgomery's trick inside each thread), then a few
+mont_mul launches.
 
 A table is cut into chunks only to bound device memory: 1 << 19 G1 and
 1 << 17 G2 scalars a chunk, so the (2,6) key's tables (482,413 G1 scalars,
@@ -17,8 +19,8 @@ the five tables concatenated, and 117,114 G2) are one chunk each, about
 0.2 GB of digits and 0.3 GB of points for G1. The reference's chunks
 (1 << 15 and 1 << 14, zkrollup/msm/fixed_base.py) fit a TPU's memory; on
 the H100 they cut each launch below one wave of the point kernels and ran
-the Fermat inversion (about 360 mont_mul launches) once a chunk. The key's
-bytes do not depend on the chunk.
+the normalisation once a chunk. The key's bytes do not depend on the
+chunk.
 """
 
 from __future__ import annotations
