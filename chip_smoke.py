@@ -8,9 +8,10 @@ Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
   1. build the CUDA kernels (four nvcc processes at once, one per source of
      zkrollup_torch/csrc, with each kernel's registers, spill and stack
-     frame from the ptxas report; the eight point kernels with launch
-     bounds, g1_add, g1_madd_nd, g1_madd, g2_add, g2_madd_nd, g2_madd,
-     g2_double and g2_add_z01, and the two Horner kernels must not spill,
+     frame from the ptxas report; the ten point kernels with launch
+     bounds, g1_add, g1_madd_nd, g1_madd, g1_add_z01, g2_add, g2_madd_nd,
+     g2_madd, g2_double, g2_add_z01 and g2_add_nd, and the two Horner
+     kernels must not spill,
      six logged
      beside their registers before the unified add was factored out of
      its lane) and the native host engine (g++, from native/src into
@@ -48,11 +49,16 @@ Phases; any failure raises and the script exits non-zero:
      of distinct pairs with one P + P lane, a warp of infinity + infinity,
      ragged launches of 33 and 1,025 lanes with P + P in the last warp),
      all six on ragged launches of 1, 22 and 33 lanes and on one lane
-     (timed); g2_add_z01 (on thread pairs) also at the msm_trees leaf
-     level's 1,441,792 lanes (timed there), on the warp-vote cases and on
-     ragged launches; the vote cases also with a P + (-P) lane; the six
-     integer-unit kernels at the width and reps of phase 7's rate run (and
-     at a small width)
+     (timed); the z01 adds (g1_add_z01 over the called Fq product,
+     g2_add_z01 on thread pairs) also at the msm_trees leaf level's
+     1,441,792 lanes (timed there), on the warp-vote cases and on ragged
+     launches; the vote cases also with a P + (-P) lane; g2_add_nd (on
+     thread pairs, no doubling path) on ragged launches of 1, 22, 33 and
+     1,025 lanes and on one lane, its H = 0 lanes among them; the eight
+     integer-unit kernels (the TPU tool's body over six ops, and two
+     multiply-only chains) at the width and reps of phase 7's rate run
+     (and at a small width), each bound by its loop's instructions by class
+     as cuobjdump -sass shows them
   3. setup on the card: TxProver for the default BatchProcessTx(2, 6)
      config makes its key from a fixed seed with the fixed-base tables on
      the GPU (never read from a cache); setup_host makes the same key on
@@ -94,7 +100,8 @@ Phases; any failure raises and the script exits non-zero:
      same pinned (r, s), whose bytes must equal phase 4's proof and the
      native engine's, self-verified; then a second, timed proof
   7. the tools (the "tools" path): profile_alu's rates of the integer
-     unit beside the documented multiply peak, and the point-kernel check
+     unit beside the documented multiply peak and each kernel's bound, and
+     the point-kernel check
      of every G2 kernel against zkrollup_torch.ref; then (the "curve" path)
      JacobianCurve.add_nd and double over G1, the methods that reach
      g1_add_nd and g1_double, against zkrollup_torch.ref
@@ -110,10 +117,13 @@ Phases; any failure raises and the script exits non-zero:
      path): `python -m zkrollup_torch.cli demo-rollup` in-process on the
      card with phase 3's key cached in a temporary --keys-dir (the
      contract's balances A 0.57 ETH nonce 2, B 1.4 ETH, fees 0.03); the
-     batch daemon's run_pipeline over four sends (two batches) and eight
-     more (four), against the contract's balances and root, with
-     batches/s and each batch's witness, prove and verify seconds; the
-     same batches through step() one at a time; the HTTP service on a
+     batch daemon's run_pipeline (its witness stage in a spawned worker
+     process) over four sends (two batches, the warm run), the same
+     batches through step() on a daemon of its own, then run_pipeline and
+     step() in turns (pipeline, step, step, pipeline), eight batches a
+     timed run, against the contract's balances and root, with the median
+     batches/s of each and each batch's assemble, synth, prove and verify
+     seconds; the HTTP service on a
      free port (deposits, sends, /admin/prove-batch proving on a server
      thread, the users' balances). Then the withdraw circuit (the
      "withdraw" path): WithdrawProver's key made on the card, equal to
@@ -121,13 +131,22 @@ Phases; any failure raises and the script exits non-zero:
      to the native engine's, paid out by the contract once and refused on
      nullifier reuse, with its launches and lanes; `demo-withdraw` through
      the CLI. Each kernel of the two paths must launch on it
+ 10. the bulk MiMC tree (the "mimc" path, every product on mont_mul[fr]):
+     merkle_level_up over 2^17 pairs, bit for bit against the native
+     engine; bulk.from_leaves over a depth-18 tree at its capacity (2^17 - 1
+     leaves), its root and caches against the engine's levels;
+     multi_hash_rows over 2^17 four-wide rows against the engine;
+     TreeStore.verify_integrity on that tree, True, then False after a
+     corrupted leaf hash; the level timed (host clock, CUDA events,
+     hashes/s beside the engine's one-core rate), profiled, and its
+     limbs.normalize calls on CUDA tensors counted
 The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
 
 With --ab, phases 0 and 1 only, then the point kernels of PROVE_SHAPES
-and SETUP_SHAPES, the doubles, the Horner kernels, g2_add_z01 and the
-inversion kernels (where CSRC has them; each of AB_KERNELS once, checked
+and SETUP_SHAPES, the doubles, the Horner kernels, the z01 adds, g2_add_nd
+and the inversion kernels (where CSRC has them; each of AB_KERNELS once, checked
 by check_ab_cases) of this checkout against those built from each CSRC
 directory (another commit's zkrollup_torch/csrc unpacked with `git
 archive`, or an edited copy of this one's), on phase 2's operands and on
@@ -150,8 +169,10 @@ import collections  # noqa: E402
 import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+from decimal import Decimal  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -189,9 +210,11 @@ KERNELS = {
     "g1_add_z01": (_CSRC + "g1.cu", _PC + "486"),
     # no Pallas kernel: the XLA glue of the generic formula over Fq2
     "g2_add_z01": (_CSRC + "g2.cu", "zkrollup/curve/weierstrass.py:332"),
+    # the TPU tool's body over six ops, and beside it the multiply-only
+    # bodies of the same tool (alu_mad_lo, alu_mad_hi)
     **{f"alu_{op}": (_CSRC + "alu.cu", "tools/profile_vpu.py:56")
        for op in ("mul", "add", "shift_add", "f32_mul12", "mul16",
-                  "umulhi")},
+                  "umulhi", "mad_lo", "mad_hi")},
 }
 
 # the kernels each path must launch
@@ -207,7 +230,8 @@ PATHS = {
     "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                   "g1_add_z01", "g1_add", "g2_add_z01", "g2_add"),
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
-              "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi"),
+              "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi",
+              "alu_mad_lo", "alu_mad_hi"),
     "curve": ("g1_add_nd", "g1_double"),
     # phase 9: the operator loop's proofs (demo-rollup, the daemon, the
     # HTTP service) with phase 3's key; the withdraw circuit's setup and
@@ -217,9 +241,13 @@ PATHS = {
     "withdraw": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                  "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add", "g1_madd",
                  "g2_madd", "inv[fq]", "inv[fq2]"),
+    # phase 10: the bulk MiMC tree (hash/mimc.py, tree/bulk.py), its
+    # products on mont_mul[fr]
+    "mimc": ("mont_mul[fr]",),
 }
-# the paths phase 9 drives; phase 8 checks the others
+# the paths phase 9 drives, and phase 10's; phase 8 checks the others
 LOOP_PATHS = ("operator", "withdraw")
+MIMC_PATHS = ("mimc",)
 
 # -- the bound: the least time an H100 SXM could take for a kernel's work ---
 HBM_BYTES_PER_S = 3.35e12          # device memory rate (NVIDIA data sheet)
@@ -232,9 +260,6 @@ INT_MULS_PER_S = 64 * 132 * CLOCK_HZ
 # one warp on an SM sub-partition, which issues 16 multiplies a clock:
 # one warp-wide multiply every 2 clocks (the latency bound of a chain)
 WARP_MUL_CLOCKS = 2
-# 32-bit floating-point multiply: 128 per clock per SM (the same table; the
-# data sheet's 67 TFLOP/s counts a multiply-add as two)
-FP32_MULS_PER_S = 128 * 132 * 1.98e9
 MULS_PER_PRODUCT = 264             # one 8-word CIOS product: 8 x (16 + 1 + 16)
 # One coordinate value is 256 bits. The port stores it as a 64-byte row of
 # 16 int32 words holding 16-bit limbs, a storage choice that doubles the
@@ -252,14 +277,13 @@ PER_LANE = {
     "g1_add_nd": (16, 0, 9), "g2_add_nd": (44, 0, 18),
     "g1_add_z01": (6, 6, 9), "g2_add_z01": (16, 13, 18),
 }
-# integer-unit kernels, per lane and rep: (the op's own instructions, their
-# rate); the two XORs that chain the reps, the masks and the f32 op's
-# conversions are not counted. A lane reads 8 B and writes 4 B.
-ALU_OPS = {
-    "mul": (1, INT_MULS_PER_S), "add": (1, INT_MULS_PER_S),
-    "shift_add": (2, INT_MULS_PER_S), "f32_mul12": (1, FP32_MULS_PER_S),
-    "mul16": (1, INT_MULS_PER_S), "umulhi": (1, INT_MULS_PER_S),
-}
+# The integer-unit kernels are bounded by their whole body per lane and
+# rep, the TPU tool's op and the two XORs that chain its reps, or the
+# multiply of a chain, and the loop's counter: the instructions of each
+# kernel's loop by class, read from the build (profile_alu.sass_counts,
+# cuobjdump -sass), each class at its CC 9.0 throughput and all of them at
+# the issue rate (profile_alu.issue_clocks). A lane reads 8 B and writes
+# 4 B.
 ALU_LOG_N, ALU_REPS = 19, 1024      # the rate run: (16, 2^19) lanes
 # the (2,6) proof's domain, its witness rows, and the gathered spmv
 # products: the mean mont_mul[fr] width on prove of the stage-by-stage
@@ -305,7 +329,10 @@ SETUP_LIMITS = {"g1_madd": (32, 32), "g2_madd": (32, 32),
 # the widths of g2_add_z01 phase 2 holds it at beyond 2^16 lanes: the
 # Jacobian merge tree's leaf level on the msm paths (22 windows x 2^16
 # lanes, the b2 table padded to 2^17 pairs)
-Z01_SHAPES = {"g2_add_z01": (1_441_792,)}
+Z01_SHAPES = {"g1_add_z01": (1_441_792,), "g2_add_z01": (1_441_792,)}
+# point kernels without a doubling path that phase 2 holds on ragged
+# launches and one lane beyond 2^16 lanes (no warp vote)
+ND_SHAPES = {"g2_add_nd": ()}
 # the inversion kernels in phase 2: the widest launch (the setup's G1
 # table; 2^17 for Fq2, its table 117,114 a slice of it), the other
 # widths as slices of its operand, and ragged launches
@@ -313,7 +340,8 @@ INV_SHAPES = {"inv[fq]": (482_413, 1 << 17), "inv[fq2]": (1 << 17, 117_114)}
 INV_RAGGED = (1, 22, 33, 1025)
 # the kernels --ab holds against the builds of other csrc/ (ab_run)
 AB_KERNELS = (*PROVE_SHAPES, *SETUP_SHAPES, "g1_double", "g2_double",
-              "g1_horner", "g2_horner", *Z01_SHAPES, *INV_SHAPES)
+              "g1_horner", "g2_horner", *Z01_SHAPES, *ND_SHAPES,
+              *INV_SHAPES)
 # the Fermat chain of q - 2 in the inversion kernel: 253 squares, 109
 # products
 INV_CHAIN = 362
@@ -331,6 +359,8 @@ LAUNCH_BOUNDS = {"g1_add_kernel": (128, 3), "g1_madd_nd_kernel": (128, 4),
                  "jac_madd_pair_kernel": (128, 3),
                  "jac_double_pair_kernel": (128, 3),
                  "jac_add_z01_pair_kernel": (128, 3),
+                 "jac_add_nd_pair_kernel": (128, 3),
+                 "g1_add_z01_kernel": (128, 3),
                  "g1_horner_kernel": (32, 1), "g2_horner_kernel": (32, 1)}
 # ptxas registers of the kernels built before the unified add was factored
 # out of its lane for the Horner (CUDA 12.8, sm_90a), which that must not
@@ -417,12 +447,15 @@ def inv_kernel_products(name: str, n: int) -> int:
     return (3 if name == "inv[fq]" else 7) * n + (INV_CHAIN - 3) * T
 
 
-def alu_bound(op: str, n: int, reps: int):
-    """The bound of alu_<op> over (16, n) lanes and reps: its own
-    instructions at their documented rate against 12 B a lane."""
-    count, rate = ALU_OPS[op]
+def alu_bound(counts: dict, n: int, reps: int):
+    """The bound of an integer-unit kernel over (16, n) lanes and reps: the
+    clocks an SM needs per lane and rep for its loop's instructions
+    (profile_alu.issue_clocks of its sass_counts entry) over 132 SMs at
+    CLOCK_HZ, against 12 B a lane."""
+    from zkrollup_torch.tools import profile_alu
     t_bytes = 16 * n * 12 / HBM_BYTES_PER_S * 1e3
-    t_ops = 16 * n * reps * count / rate * 1e3
+    t_ops = (16 * n * reps * profile_alu.issue_clocks(counts)
+             / (132 * CLOCK_HZ) * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -540,6 +573,14 @@ def count_path(launches, path):
 
 def log(*a):
     print(*a, flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -804,7 +845,8 @@ def check_kernels(dev, results):
                    lane_bound(name, n, n_dbl))
 
         check_double(curve, ops[f"{curve.name}_double"][2], results)
-        for name in (*PROVE_SHAPES, *SETUP_SHAPES, *Z01_SHAPES):
+        for name in (*PROVE_SHAPES, *SETUP_SHAPES, *Z01_SHAPES,
+                     *ND_SHAPES):
             if name.startswith(curve.name + "_"):
                 check_widths(curve, name, *ops[name][:3], results)
         check_horner(curve, ops[f"{curve.name}_add"][2][0], results)
@@ -1276,7 +1318,10 @@ def vote_lanes(case: str, warp: int) -> list:
 
 def widths_of(name: str) -> list:
     """[(lanes, what)]: the widths beyond 2^16 at which phase 2 holds and
-    times a point kernel of PROVE_SHAPES, SETUP_SHAPES or Z01_SHAPES."""
+    times a point kernel of PROVE_SHAPES, SETUP_SHAPES, Z01_SHAPES or
+    ND_SHAPES."""
+    if name in ND_SHAPES:
+        return [(m, "tools") for m in ND_SHAPES[name]]
     if name in Z01_SHAPES:
         return [(m, "msm_trees leaves") for m in Z01_SHAPES[name]]
     if name in SETUP_SHAPES:
@@ -1287,10 +1332,12 @@ def widths_of(name: str) -> list:
 
 
 def check_widths(curve, name, fn, plain, args, results):
-    """Phase 2, a point kernel of PROVE_SHAPES, SETUP_SHAPES or Z01_SHAPES
-    beyond 2^16 lanes: bit for bit against its plain version at
-    widths_of(name), on ragged launches (RAGGED, at two offsets), on one
-    lane (six lanes, the special ones included) and, for the voting kernels
+    """Phase 2, a point kernel of PROVE_SHAPES, SETUP_SHAPES, Z01_SHAPES or
+    ND_SHAPES beyond 2^16 lanes: bit for bit against its plain version at
+    widths_of(name), on ragged launches (RAGGED, at two offsets, and 1,025
+    lanes), on one lane (six lanes, the special ones included: on the adds
+    without a doubling path lanes 0 and 1 have H = 0) and, for the voting
+    kernels
     of SETUP_SHAPES and Z01_SHAPES, on the warp-vote cases (VOTE_CASES at
     the kernel's warp); timed at those
     widths, beside the bound there, and on one lane. Operands are lanes of
@@ -1319,7 +1366,8 @@ def check_widths(curve, name, fn, plain, args, results):
         if err:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version at {m} lanes")
-    bad = [(m, off) for m in RAGGED for off in (0, n - 7)
+    bad = [(m, off) for m, off in [(m, off) for m in RAGGED
+                                   for off in (0, n - 7)] + [(1025, 0)]
            if same(take(m, off)[0])]
     bad += [(1, off) for off in range(6) if same(take(1, off)[0])]
     if votes:
@@ -1338,7 +1386,8 @@ def check_widths(curve, name, fn, plain, args, results):
     results[name].update(shapes=shapes, one_lane_ms=ms1)
     cases = (f", vote cases {VOTE_CASES} at {WARP_LANES[curve.name]} lanes "
              "a warp" if votes else "")
-    log(f"  {name:13s} ragged {RAGGED} lanes and one lane (lanes 0-5)"
+    log(f"  {name:13s} ragged {RAGGED} lanes at two offsets, 1025 lanes and "
+        f"one lane (lanes 0-5)"
         f"{cases}: max_abs_err 0; one lane {ms1:.4f} ms")
 
 
@@ -1346,10 +1395,15 @@ def check_alu(dev, results):
     """Phase 2, the integer-unit kernels: each against its plain version,
     bit for bit, on the inputs of phase 7's rate run, (16, 2^ALU_LOG_N)
     and ALU_REPS (phase 7 times the kernel there), with the plain
-    version's time; and at (16, 4096) and 256 reps."""
+    version's time; and at (16, 4096) and 256 reps. Each kernel's bound
+    counts its loop's instructions by class, from cuobjdump -sass of the
+    built alu library (profile_alu.sass_counts), logged per lane and
+    rep."""
     import torch
+    from zkrollup_torch import kernels
     from zkrollup_torch.tools import profile_alu
     small = profile_alu.check(dev)
+    sass = profile_alu.sass_counts(kernels.build_info["paths"]["alu"])
     a, b = profile_alu.inputs(1 << ALU_LOG_N, dev)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -1361,10 +1415,14 @@ def check_alu(dev, results):
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
         err = max_abs_err([profile_alu.alu(op, a, b, ALU_REPS)], [want])
-        bnd = alu_bound(op, 1 << ALU_LOG_N, ALU_REPS)
+        bnd = alu_bound(sass[op], 1 << ALU_LOG_N, ALU_REPS)
+        per_rep = {c: v for c, v in sass[op].items() if c != "opcodes"}
         results[f"alu_{op}"] = {"max_abs_err": err, "plain_ms": plain_ms,
                                 "bound_ms": bnd[0], "bound_by": bnd[1],
-                                "library_ms": None}
+                                "library_ms": None,
+                                "sass_per_rep": per_rep}
+        log(f"  alu_{op:10s} loop instructions a lane and rep by class "
+            f"{per_rep}; opcodes in the loop {sass[op]['opcodes']}")
         log(f"  alu_{op:10s} max_abs_err {err} at 16 x 2^{ALU_LOG_N}, "
             f"{ALU_REPS} reps ({small[op]} at 16 x 4096, 256 reps); plain "
             f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -1519,7 +1577,6 @@ def proof_bytes(proof) -> bytes:
 
 
 def wei(eth) -> int:
-    from decimal import Decimal
     return int(Decimal(str(eth)) * 10 ** 18)
 
 
@@ -1654,6 +1711,25 @@ def main_path(dev, prover, launches):
     return prep, proof_bytes(proof)
 
 
+def device_time(prof):
+    """(the device's busy seconds: the union of its kernels and copies in a
+    torch.profiler trace; [(microseconds, count, name)] by kernel name,
+    largest first)."""
+    import torch
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in cuda):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in cuda:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    return busy / 1e6, sorted(((t, c, name) for name, (t, c)
+                               in by_name.items()), reverse=True)
+
+
 def profile_proof(dev, prover, prep):
     """Phase 4: one steady proof (prove_prepared) under torch.profiler: the
     device's busy share (the union of its kernels and copies over the
@@ -1678,21 +1754,7 @@ def profile_proof(dev, prover, prep):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy_s = busy / 1e6
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.end - e.time_range.start
-            by_name[e.name][1] += 1
-    rows = sorted(((t, c, name) for name, (t, c) in by_name.items()),
-                  reverse=True)
+    busy_s, rows = device_time(prof)
     total = sum(t for t, _, _ in rows) / 1e6
     st = prover.stats
     log(f"  profile of one steady proof (prove_prepared): wall "
@@ -1993,11 +2055,13 @@ def tools_phase(dev, results, launches):
         f" T/s (64 per clock per SM, 132 SMs, 1.98 GHz)")
     for op, r in rates.items():
         ratio = ""
-        if op in ("mul", "umulhi", "mul16"):
+        if op in ("mul", "umulhi", "mul16", "mad_lo", "mad_hi"):
             ratio = (f"  {r['lane_ops_per_s'] / INT_MULS_PER_S:.3f} of the "
                      "multiply peak")
+        bnd = results[f"alu_{op}"]["bound_ms"]
         log(f"    {profile_alu.OPS[op]:40s} {r['ms']:8.4f} ms  "
-            f"{r['lane_ops_per_s'] / 1e12:7.3f} T lane-ops/s{ratio}")
+            f"{r['lane_ops_per_s'] / 1e12:7.3f} T lane-ops/s{ratio}; "
+            f"bound {bnd:.4f} ms, {bnd / r['ms']:.3f} of it")
         results[f"alu_{op}"].update(ms=r["ms"],
                                     lane_ops_per_s=r["lane_ops_per_s"])
     g2_kernel_check.run(dev, log=lambda m: log("    " + m))
@@ -2124,15 +2188,16 @@ class LoopEnv:
 @contextlib.contextmanager
 def batch_records(prover):
     """Each proof prove_prepared makes while open (the daemon's step and
-    run_pipeline both prove through it): (witness_s of its batch, prove_s,
-    verify_s)."""
+    run_pipeline both prove through it): (assemble_s and synth_s of its
+    batch's witness, prove_s, verify_s)."""
     records = []
     orig = prover.prove_prepared
 
     def recorded(prep, r=None, s=None):
         proof = orig(prep, r=r, s=s)
         st = prover.stats
-        records.append((prep.witness_s, st.prove_s, st.verify_s))
+        records.append((prep.assemble_s, prep.synth_s, st.prove_s,
+                        st.verify_s))
         return proof
 
     prover.prove_prepared = recorded
@@ -2142,15 +2207,24 @@ def batch_records(prover):
         del prover.prove_prepared
 
 
-def log_batches(label, records, wall):
+def log_batches(label, records, wall) -> float:
+    """Logs a run's batches/s and each batch's seconds; returns the
+    batches/s."""
     n = len(records)
     log(f"  {label}: {n} batches in {wall:.3f} s, {n / wall:.3f} batches/s")
-    for i, (w, p, v) in enumerate(records):
-        log(f"    batch {i + 1}: witness_s {w:.3f}, prove_s {p:.3f}, "
-            f"verify_s {v:.3f}")
-    sums = [sum(r[k] for r in records) for k in range(3)]
-    log(f"    sums: witness {sums[0]:.3f} s, prove {sums[1]:.3f} s, verify "
-        f"{sums[2]:.3f} s")
+    for i, (a, w, p, v) in enumerate(records):
+        log(f"    batch {i + 1}: assemble_s {a:.3f}, synth_s {w:.3f}, "
+            f"prove_s {p:.3f}, verify_s {v:.3f}")
+    sums = [sum(r[k] for r in records) for k in range(4)]
+    log(f"    sums: assemble {sums[0]:.3f} s, synth {sums[1]:.3f} s, prove "
+        f"{sums[2]:.3f} s, verify {sums[3]:.3f} s")
+    return n / wall
+
+
+# phase 9's timed runs: run_pipeline and step() in turns, LOOP_TURN_BATCHES
+# batches a run, each run on sends of its own (0.01 ETH, fee 0.001)
+LOOP_TURNS = ("pipeline", "step", "step", "pipeline")
+LOOP_TURN_BATCHES = 8
 
 
 def operator_loop(dev, prover, launches):
@@ -2181,45 +2255,63 @@ def operator_loop(dev, prover, launches):
         if rc != 0 or want not in out:
             raise AssertionError(f"demo-rollup: exit code {rc}, no {want!r}")
 
-    # the pipelined daemon: tests/test_e2e_rollup.py's four sends, then
-    # eight more; the stepped daemon on the same sends apart
+    # the pipelined daemon: tests/test_e2e_rollup.py's four sends, two
+    # batches (its witness worker's spawn and imports paid here), and the
+    # stepped daemon on the same sends apart; then run_pipeline and step()
+    # in turns, LOOP_TURN_BATCHES batches a timed run
     pipe, stepped = LoopEnv(prover), LoopEnv(prover)
-    for env in (pipe, stepped):
-        env.deposit(2.0, 1.0)
-        env.send(range(1, 5))
-    with batch_records(prover) as rec:
-        t0 = time.time()
-        done = pipe.daemon.run_pipeline(max_batches=2)
-        log_batches("run_pipeline(max_batches=2)", rec, time.time() - t0)
-    if done != 2 or pipe.queue.pending_count():
-        raise AssertionError(f"run_pipeline settled {done} batches")
-    pipe.check("after two pipelined batches", 1.56, 4, 1.40, 0.04)
-    for env in (pipe, stepped):
-        env.send(range(5, 13))
-    with batch_records(prover) as rec:
-        t0 = time.time()
-        done = pipe.daemon.run_pipeline(max_batches=4)
-        pipe_s = time.time() - t0
-        log_batches("run_pipeline(max_batches=4)", rec, pipe_s)
-    if done != 4 or pipe.queue.pending_count():
-        raise AssertionError(f"run_pipeline settled {done} batches")
-    pipe.check("after four more", 0.68, 12, 2.20, 0.12)
-    m = pipe.daemon.metrics.snapshot()
-    log(f"  the daemon's metrics: {m}")
-
-    for _ in range(2):                      # the first two batches
-        if not stepped.daemon.step():
-            raise AssertionError("step() settled no batch")
-    with batch_records(prover) as rec:
-        t0 = time.time()
-        for _ in range(4):
+    try:
+        for env in (pipe, stepped):
+            env.deposit(2.0, 1.0)
+            env.send(range(1, 5))
+        with batch_records(prover) as rec:
+            t0 = time.time()
+            done = pipe.daemon.run_pipeline(max_batches=2)
+            log_batches("warm run_pipeline(max_batches=2)", rec,
+                        time.time() - t0)
+        if done != 2 or pipe.queue.pending_count():
+            raise AssertionError(f"run_pipeline settled {done} batches")
+        pipe.check("after two pipelined batches", 1.56, 4, 1.40, 0.04)
+        for _ in range(2):
             if not stepped.daemon.step():
                 raise AssertionError("step() settled no batch")
-        step_s = time.time() - t0
-        log_batches("the same four batches through step(), one at a time",
-                    rec, step_s)
-    stepped.check("after six stepped batches", 0.68, 12, 2.20, 0.12)
-    log(f"  pipeline against step: {step_s / pipe_s:.3f}x the batches/s")
+        stepped.check("after two stepped batches", 1.56, 4, 1.40, 0.04)
+
+        rates = {"pipeline": [], "step": []}
+        nonce = {"pipeline": 5, "step": 5}
+        k = LOOP_TURN_BATCHES
+        for turn in LOOP_TURNS:
+            env = pipe if turn == "pipeline" else stepped
+            first = nonce[turn]
+            nonce[turn] += 2 * k
+            env.send(range(first, nonce[turn]), amount=0.01, fee=0.001)
+            with batch_records(prover) as rec:
+                t0 = time.time()
+                if turn == "pipeline":
+                    done = env.daemon.run_pipeline(max_batches=k)
+                else:
+                    done = sum(env.daemon.step() for _ in range(k))
+                wall = time.time() - t0
+            if done != k or env.queue.pending_count():
+                raise AssertionError(f"{turn}: {done} of {k} batches "
+                                     "settled")
+            rates[turn].append(log_batches(
+                f"{turn}, {k} batches" if turn == "pipeline" else
+                f"step() {k} times, one batch each", rec, wall))
+        sent = 4 + 4 * k
+        for env in (pipe, stepped):
+            env.check(f"after {sent // 2} batches",
+                      Decimal("1.56") - Decimal("0.044") * k, sent,
+                      Decimal("1.40") + Decimal("0.04") * k,
+                      Decimal("0.04") + Decimal("0.004") * k)
+        med = {t: statistics.median(v) for t, v in rates.items()}
+        log(f"  batches/s, median of {len(rates['step'])} runs of {k} "
+            f"batches: run_pipeline {med['pipeline']:.3f}, step() "
+            f"{med['step']:.3f}; pipeline against step "
+            f"{med['pipeline'] / med['step']:.3f}x ({smi_line()})")
+        log(f"  the daemon's metrics: {pipe.daemon.metrics.snapshot()}")
+    finally:
+        pipe.daemon.close()
 
     # the HTTP service: /admin/prove-batch proves on a server thread
     env = LoopEnv(prover)
@@ -2369,6 +2461,171 @@ def withdraw_path(dev, launches):
     count_path(launches, "withdraw")
 
 
+# -- phase 10: the bulk MiMC tree ---------------------------------------------
+
+# one Merkle level of 2^17 pairs (bench.py:185's batch, BASELINE.md:43);
+# a depth-18 tree at its capacity, 2^17 - 1 leaves (the capacity quirk,
+# 2^(depth-1) - 1); 2^17 four-wide leaf rows (helpers.ts:80)
+MIMC_PAIRS = 1 << 17
+MIMC_DEPTH = 18
+MIMC_ROWS = 1 << 17
+# the native engine's one-core rate, on a subsample (bench.py:196-204)
+MIMC_ENGINE_SUB = 1 << 13
+ENGINE_THREADS = 8
+
+
+def engine_rows(rows) -> list:
+    """engine.mimc_multi_hash_many over rows, in ENGINE_THREADS chunks on
+    threads (the call releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from zkrollup_torch.native import engine
+    step = -(-len(rows) // ENGINE_THREADS)
+    with ThreadPoolExecutor(ENGINE_THREADS) as ex:
+        parts = ex.map(engine.mimc_multi_hash_many,
+                       [rows[i:i + step] for i in range(0, len(rows), step)])
+    return [h for part in parts for h in part]
+
+
+def engine_levels(leaves, depth: int, zeros: dict) -> list:
+    """The levels of a tree over `leaves` hashed level by level on the
+    native engine, each padded to even with its zero value as the
+    incremental tree pads it; the last is [root]."""
+    levels, nodes = [], list(leaves)
+    for i in range(depth):
+        nodes = nodes + ([zeros[i]] if len(nodes) % 2 else [])
+        levels.append(nodes)
+        nodes = engine_rows([nodes[j:j + 2]
+                             for j in range(0, len(nodes), 2)])
+    return levels + [nodes]
+
+
+def mimc_phase(dev, launches):
+    """Phase 10, the "mimc" path: hash/mimc.py and tree/bulk.py on the card,
+    every product on mont_mul[fr]. Counted from 0: merkle_level_up over
+    MIMC_PAIRS pairs, bit for bit against the native engine; from_leaves
+    over a depth-MIMC_DEPTH tree at its capacity, whose root and caches
+    equal the engine's levels; multi_hash_rows over MIMC_ROWS four-wide
+    rows against the engine; verify_integrity on a store holding that
+    tree, True, then False once a leaf hash is corrupted. Then the level
+    timed (host clock and CUDA events; hashes/s beside the engine's
+    one-core rate on MIMC_ENGINE_SUB pairs), profiled (the device's busy
+    time by kernel name) and its limbs.normalize calls on CUDA tensors
+    counted."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from zkrollup_torch import kernels
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.hash import mimc
+    from zkrollup_torch.native import engine
+    from zkrollup_torch.tree import bulk
+    from zkrollup_torch.tree.merkle import MerkleTree
+    from zkrollup_torch.tree.store import TreeStore
+
+    rng = np.random.RandomState(SEED + 10)
+    rand = lambda n: [int.from_bytes(rng.bytes(32), "little") % FR.p
+                      for _ in range(n)]
+    vals = rand(2 * MIMC_PAIRS)
+    pairs = [vals[i:i + 2] for i in range(0, len(vals), 2)]
+    t0 = time.time()
+    want_level = engine_rows(pairs)
+    log(f"  the engine's {MIMC_PAIRS} pair hashes on {ENGINE_THREADS} "
+        f"threads: {time.time() - t0:.3f} s")
+    leaves = rand((1 << (MIMC_DEPTH - 1)) - 1)
+    flat = rand(4 * MIMC_ROWS)
+    rows = [flat[i:i + 4] for i in range(0, len(flat), 4)]
+    want_rows = engine_rows(rows)
+    zeros = MerkleTree(MIMC_DEPTH).zeros
+    levels = engine_levels(leaves, MIMC_DEPTH, zeros)
+    nodes = L.to_device(FR.to_mont_host(vals), dev)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.time()
+    got_level = FR.from_mont_host(mimc.merkle_level_up(nodes))
+    level_s = time.time() - t0
+    if got_level != want_level:
+        raise AssertionError("merkle_level_up differs from the engine")
+    log(f"  merkle_level_up, {MIMC_PAIRS} pairs: equal to the engine's "
+        f"mimc_multi_hash_many bit for bit ({level_s:.3f} s, first call)")
+    t0 = time.time()
+    tree = bulk.from_leaves(leaves, MIMC_DEPTH, device=dev)
+    tree_s = time.time() - t0
+    n = len(leaves)
+    want_paths = {i: dict(enumerate(lv)) for i, lv in enumerate(
+        levels[:MIMC_DEPTH])}
+    want_sub = {i: levels[i][((n - 1) >> i) & ~1] for i in range(MIMC_DEPTH)}
+    if (tree.root, tree.filled_paths, tree.filled_subtrees, tree.zeros) != (
+            levels[-1][0], want_paths, want_sub, zeros):
+        raise AssertionError("from_leaves: root or caches differ from the "
+                             "engine's levels")
+    log(f"  from_leaves, depth {MIMC_DEPTH}, {n} leaves (its capacity): "
+        f"root and caches equal the engine's levels ({tree_s:.3f} s, "
+        f"{sum(len(lv) >= 2 * bulk.MIN_BATCH_LEAVES for lv in levels[:-1])}"
+        f" levels batched on {dev})")
+    t0 = time.time()
+    got_rows = bulk.multi_hash_rows(rows, device=dev)
+    rows_s = time.time() - t0
+    if got_rows != want_rows:
+        raise AssertionError("multi_hash_rows differs from the engine")
+    log(f"  multi_hash_rows, {MIMC_ROWS} four-wide rows: equal to the "
+        f"engine ({rows_s:.3f} s)")
+    store = TreeStore()
+    try:
+        store.save_all_leaves("balanceTree", tree)
+        t0 = time.time()
+        intact = store.verify_integrity("balanceTree", device=dev)
+        verify_s = time.time() - t0
+        store.conn.execute("UPDATE leaves SET hash='12345' WHERE idx=3")
+        store.conn.commit()
+        corrupted = store.verify_integrity("balanceTree", device=dev)
+    finally:
+        store.close()
+    log(f"  verify_integrity on a store of that tree: {intact} "
+        f"({verify_s:.3f} s), after one leaf hash is corrupted: "
+        f"{corrupted}")
+    if (intact, corrupted) != (True, False):
+        raise AssertionError(f"verify_integrity gave {intact}, {corrupted}")
+    torch.cuda.synchronize()
+    count_path(launches, "mimc")
+
+    wall = wall_ms(lambda: mimc.merkle_level_up(nodes), 3) / 1e3
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    mimc.merkle_level_up(nodes)
+    e1.record()
+    torch.cuda.synchronize()
+    events_s = e0.elapsed_time(e1) / 1e3
+    with cuda_normalize_calls() as calls:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mimc.merkle_level_up(nodes)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    busy_s, by_name = device_time(prof)
+    sub = pairs[:MIMC_ENGINE_SUB]
+    t0 = time.time()
+    engine.mimc_multi_hash_many(sub)
+    engine_rate = len(sub) / (time.time() - t0)
+    log(f"  merkle_level_up, {MIMC_PAIRS} pairs on {dev}: {wall:.4f} s "
+        f"wall (median of 3), {events_s:.4f} s between CUDA events, "
+        f"{MIMC_PAIRS / wall:,.0f} hashes/s; the native engine on one core "
+        f"{engine_rate:,.0f} hashes/s ({MIMC_ENGINE_SUB} pairs); "
+        f"{smi_line()}")
+    log(f"  one level under torch.profiler: wall {prof_wall:.4f} s, device "
+        f"busy {busy_s:.4f} s ({busy_s / prof_wall:.3f} of the wall); "
+        f"limbs.normalize on CUDA tensors {calls[0]} times")
+    if not by_name:
+        log("  the profiler recorded no device time: not measured")
+    for t, count, key in by_name[:8] + [r for r in by_name[8:]
+                                         if "mont_mul" in r[2]]:
+        log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+
+
 def launch_table(launches, paths):
     log(f"  {'kernel':14s} " + " ".join(f"{p:>19s}" for p in paths))
     for k in KERNELS:
@@ -2403,8 +2660,9 @@ def check_ab_cases(cases: list) -> None:
 
 def ab_run(dev, bases: list, keep) -> list:
     """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES, the
-    doubles, the Horner kernels, g2_add_z01 (at 2^16 lanes, Z01_SHAPES and
-    one lane) and the inversion kernels (at the widest of INV_SHAPES and
+    doubles, the Horner kernels, the z01 adds (at 2^16 lanes, Z01_SHAPES
+    and one lane), g2_add_nd (ND_SHAPES: 2^16 lanes and one lane) and the
+    inversion kernels (at the widest of INV_SHAPES and
     one lane, random operands with zero lanes) of this checkout against
     those built from each csrc/ directory of `bases`. Every unit they live
     in (kernels.UNITS) is built from each base, one nvcc each, all started
@@ -2500,10 +2758,12 @@ def ab_run(dev, bases: list, keep) -> list:
                 f"W={HORNER_W}, c={HORNER_C}"]
             cases.append((f"{g}_horner", 1, "phase 2", curve,
                           cuda_curve.horner, horner_plain_host, (wsum, c)))
-        fn, plain, args, _ = ops["g2"]["g2_add_z01"]
-        for m in (1 << 16, *Z01_SHAPES["g2_add_z01"], 1):
-            sub, _ = take_lanes(G2, args, m, 5 if m == 1 else 0)
-            cases.append(("g2_add_z01", m, "phase 2", G2, fn, plain, sub))
+        for name in (*Z01_SHAPES, *ND_SHAPES):
+            curve = curves[name.split("_")[0]]
+            fn, plain, args, _ = ops[curve.name][name]
+            for m in (1 << 16, *(w for w, _ in widths_of(name)), 1):
+                sub, _ = take_lanes(curve, args, m, 5 if m == 1 else 0)
+                cases.append((name, m, "phase 2", curve, fn, plain, sub))
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + 3)
 
@@ -2782,10 +3042,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = smi_line()
     log(f"phase 0: {smi}")
     dev = torch.device("cuda", 0)
 
@@ -2847,7 +3104,7 @@ def main() -> int:
     curve_path(dev, launches)
 
     log("phase 8: launches, and lanes per launch, on each path")
-    earlier = [p for p in PATHS if p not in LOOP_PATHS]
+    earlier = [p for p in PATHS if p not in LOOP_PATHS + MIMC_PATHS]
     launch_table(launches, earlier)
     check_widest("prove", launches["prove"], PROVE_SHAPES)
     check_prove_limits(launches)
@@ -2861,6 +3118,11 @@ def main() -> int:
     log("  launches, and lanes per launch, on the loop's paths")
     launch_table(launches, LOOP_PATHS)
     check_paths(launches, LOOP_PATHS)
+
+    log("phase 10: the bulk MiMC tree on the card")
+    mimc_phase(dev, launches)
+    launch_table(launches, MIMC_PATHS)
+    check_paths(launches, MIMC_PATHS)
     unlaunched = [k for k in KERNELS
                   if not any(launches[p][k][0] for p in PATHS)]
     if unlaunched:

@@ -104,3 +104,82 @@ def test_full_width_inputs_wrap_as_uint32():
 def test_unknown_op_raises(inputs):
     with pytest.raises(ValueError, match="unknown op"):
         profile_alu.alu("div", *inputs, 16)
+
+
+@pytest.mark.parametrize("op", sorted(profile_alu.CHAINS))
+def test_mad_chain_plain_matches_python_ints(op):
+    """The multiply-only bodies: acc = a ^ b, then reps multiply-adds,
+    mad.lo (acc * a + b mod 2^32) or mad.hi (high word of acc * a, plus b,
+    mod 2^32), on full 32-bit words."""
+    rng = np.random.RandomState(5)
+    u = rng.randint(0, 1 << 32, size=(16, 64), dtype=np.uint64)
+    v = rng.randint(0, 1 << 32, size=(16, 64), dtype=np.uint64)
+    a, b = (torch.from_numpy(w.astype(np.uint32).view(np.int32))
+            for w in (u, v))
+    reps = 9
+    got = profile_alu.alu(op, a, b, reps).numpy().astype(np.uint32)
+    x, y = u.astype(object), v.astype(object)
+    acc = x ^ y
+    for _ in range(reps):
+        prod = acc * x
+        acc = ((prod >> 32 if profile_alu.CHAINS[op] else prod) + y) % (1 << 32)
+    assert np.array_equal(got, acc.astype(np.uint32))
+
+
+# a loop as cuobjdump -sass prints it for sm_90, with a smaller loop
+# before it: sass_counts takes the largest loop, label to the branch back
+_SASS = """
+        /*0100*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+.L_x_0:
+        /*0110*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0120*/                   ISETP.NE.AND P0, PT, R2, R3, PT ;
+        /*0130*/              @P0 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0140*/                   IMAD R4, R5, R6, RZ ;
+        /*0150*/                   LOP3.LUT R7, R7, R4, RZ, 0x3c, !PT ;
+        /*0160*/                   LOP3.LUT R5, R5, R7, RZ, 0x3c, !PT ;
+        /*0170*/                   I2FP.F32.U32 R8, R9 ;
+        /*0180*/                   FMUL R8, R8, R8 ;
+        /*0190*/                   IMAD.HI.U32 R4, R5, R6, R7 ;
+        /*01a0*/                   VIADD R2, R2, 0x4 ;
+        /*01b0*/              @!P1 BRA `(.L_x_1) ;
+        /*01c0*/                   EXIT ;
+"""
+
+
+# the same loops as cuobjdump prints branches: to an address
+_SASS_ADDR = """
+        /*0100*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+                                                       /* 0x000fe200078e00ff */
+        /*0110*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0120*/                   ISETP.NE.AND P0, PT, R2, R3, PT ;
+        /*0130*/              @P0 BRA 0x110 ;
+        /*0140*/                   IMAD R4, R5, R6, RZ ;
+        /*0150*/                   LOP3.LUT R7, R7, R4, RZ, 0x3c, !PT ;
+        /*0160*/                   LOP3.LUT R5, R5, R7, RZ, 0x3c, !PT ;
+        /*0170*/                   I2FP.F32.U32 R8, R9 ;
+        /*0180*/                   FMUL R8, R8, R8 ;
+        /*0190*/                   IMAD.HI.U32 R4, R5, R6, R7 ;
+        /*01a0*/                   VIADD R2, R2, 0x4 ;
+        /*01b0*/              @!P1 BRA 0x140 ;
+        /*01c0*/                   EXIT ;
+        /*01d0*/                   BRA 0x1d0;
+"""
+
+
+@pytest.mark.parametrize("sass", [_SASS, _SASS_ADDR],
+                         ids=["labels", "addresses"])
+def test_sass_loop_classes(sass):
+    """The largest loop's opcodes by class, and the clocks an SM needs for
+    them at the documented CC 9.0 rates."""
+    ops = profile_alu._loop_opcodes(sass)
+    assert ops == ["IMAD", "LOP3.LUT", "LOP3.LUT", "I2FP.F32.U32", "FMUL",
+                   "IMAD.HI.U32", "VIADD", "BRA"]
+    counts = profile_alu.classify(ops)
+    assert counts == {"imad": 2, "int": 4, "fp32": 1, "conv": 0,
+                      "other": 1, "total": 8}
+    # the integer ops at 64 a clock bound it: 4/64 > 2/64 and 8/128
+    assert profile_alu.issue_clocks(counts) == 4 / 64
+    # an F2I (16 a clock) in place of the FMUL would bound it: 1/16
+    counts = profile_alu.classify([o.replace("FMUL", "F2I.U32") for o in ops])
+    assert counts["conv"] == 1 and profile_alu.issue_clocks(counts) == 1 / 16

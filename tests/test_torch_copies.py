@@ -232,6 +232,12 @@ def _tree_store(pkg):
     loaded = store.load("t")
     seen += [loaded.root, loaded.leaves_raw,
              store.verify_integrity("t", use_device=False)]
+    # every leaf of a tree saved at once: the same rows
+    store.save_all_leaves("all", tree)
+    seen += [store.load("all").equals(tree), store.conn.execute(
+        "SELECT l.id, l.idx, l.raw, l.hash FROM leaves l JOIN merkletrees m"
+        " ON l.merkletree_id = m.id WHERE m.name = 'all' ORDER BY l.id"
+    ).fetchall()]
     # a corrupted leaf row: the rebuilt root no longer matches
     store.conn.execute("UPDATE leaves SET hash='5' WHERE idx=2")
     return seen + [store.verify_integrity("t", use_device=False)]
@@ -289,19 +295,3 @@ def test_validation_cases_reach_each_verdict():
     for part in ("(from) not found", "(to) not found", "unable to send",
                  "0.3%", "Expected nonce", "Invalid signature"):
         assert any(part in v for v in verdicts), part
-
-
-def test_tree_store_verify_integrity_refuses_the_device():
-    """The bulk MiMC tree is not ported: use_device=True raises and never
-    takes the host path."""
-    from zkrollup_torch.tree.merkle import create_merkle_tree
-    from zkrollup_torch.tree.store import TreeStore
-    store = TreeStore()
-    tree = create_merkle_tree(4)
-    tree.insert_(5, {"balance": 5})
-    store.save("t", tree)
-    with pytest.raises(NotImplementedError, match="bulk MiMC"):
-        store.verify_integrity("t")
-    with pytest.raises(NotImplementedError):
-        store.verify_integrity("t", use_device=True)
-    assert store.verify_integrity("t", use_device=False)

@@ -38,8 +38,7 @@ from zkrollup_torch.cli import main as cli
 from zkrollup_torch.config import RollupConfig
 from zkrollup_torch.groth16.keys import r1cs_digest
 from zkrollup_torch.operator.batchd import BatchDaemon
-from zkrollup_torch.operator.prover import (PreparedBatch, TxProver,
-                                           WithdrawProver)
+from zkrollup_torch.operator.prover import TxProver, WithdrawProver
 from zkrollup_torch.operator.queue import TxQueue
 from zkrollup_torch.operator.service import OperatorApp, start_app
 from zkrollup_torch.operator.state import OperatorState
@@ -178,7 +177,12 @@ def test_pipeline_matches_reference(key):
     """run_pipeline(max_batches=2) settles the same balances, nonces, fees,
     roots and events as zkrollup's daemon on the same sends."""
     _, port, ref = key
-    got, want = _pipeline(_port_env(port)), _pipeline(_ref_env(ref))
+    env = _port_env(port)
+    try:
+        got = _pipeline(env)
+    finally:
+        env[3].close()
+    want = _pipeline(_ref_env(ref))
     assert got == want
     assert got["done"] == 2 and got["pending"] == 0
     assert got["metrics"] == (2, 4, 0)
@@ -207,19 +211,23 @@ class _SettleFirstQueue(TxQueue):
         self.settled.set()
 
 
+def _no_circuit(cfg, tree, txs):
+    """_RecordingProver's host stage, run in the daemon's witness worker:
+    no circuit, the tree passed on."""
+    return {"witness": [], "public_signals": [], "final_tree": tree}
+
+
 class _RecordingProver:
-    """prepare_batch and prove_prepared without a circuit: records the
-    nonces of each batch it is given."""
+    """A host stage and prove_prepared without a circuit: records the
+    nonces of each batch it proves."""
+
+    host_stage = staticmethod(_no_circuit)
 
     def __init__(self):
         self.batches = []
 
-    def prepare_batch(self, tree, txs):
-        self.batches.append([t.nonce for t in txs])
-        return PreparedBatch(txs=txs, witness=[], public_signals=[],
-                             final_tree=tree)
-
     def prove_prepared(self, prep):
+        self.batches.append([t.nonce for t in prep.txs])
         return object()
 
 
@@ -243,10 +251,130 @@ def test_pipeline_reads_ahead_by_queue_index():
     for nonce in range(1, 9):
         queue.push(Transaction(0, 1, WEI, WEI // 100, nonce))
     daemon = BatchDaemon(CFG, chain, queue, prover, chain)
-    assert daemon.run_pipeline(max_batches=4) == 4
+    try:
+        assert daemon.run_pipeline(max_batches=4) == 4
+    finally:
+        daemon.close()
     assert prover.batches == [[1, 2], [3, 4], [5, 6], [7, 8]]
     assert queue.pending_count() == 0
     assert daemon.metrics.txs_processed == 8
+
+
+def _settled(env):
+    contract, state, queue, daemon, *_ = env
+    return {"a": contract.get_user_data(multi_hash(list(PUB_A))),
+            "b": contract.get_user_data(multi_hash(list(PUB_B))),
+            "fees": contract.get_accrued_fees(),
+            "chain_root": contract.balance_tree.get_root(),
+            "operator_root": state.load_tree().root,
+            "pending": queue.pending_count(),
+            "metrics": (daemon.metrics.batches_proven,
+                        daemon.metrics.txs_processed,
+                        daemon.metrics.proofs_failed)}
+
+
+def test_pipeline_witness_runs_in_the_worker(key, monkeypatch):
+    """With TxProver.prepare_batch made to raise in this process,
+    run_pipeline(max_batches=2) still settles what two step() calls
+    settle: its witness stage ran in the worker process."""
+    _, port, _ = key
+    envs = []
+    for _ in range(2):
+        env = _port_env(port)
+        env[0].deposit(PUB_A[0], PUB_A[1], 2 * WEI)
+        env[0].deposit(PUB_B[0], PUB_B[1], WEI)
+        env[4].sync_chain()
+        for n in range(1, 5):
+            assert _send(env, PRIV_A, 0, 1, _wei(10), _wei(1), n) == {
+                "status": "Transaction accepted"}
+        envs.append(env)
+    stepped, piped = envs
+    assert stepped[3].step() and stepped[3].step()
+
+    def in_this_process(self, tree, txs):
+        raise AssertionError("prepare_batch ran in the calling process")
+
+    monkeypatch.setattr(TxProver, "prepare_batch", in_this_process)
+    try:
+        assert piped[3].run_pipeline(max_batches=2) == 2
+    finally:
+        piped[3].close()
+    got = _settled(piped)
+    assert got == _settled(stepped)
+    assert got["pending"] == 0 and got["metrics"] == (2, 4, 0)
+    assert got["chain_root"] == got["operator_root"]
+
+
+def test_pipeline_worker_failure_reaches_the_caller(key):
+    """A witness stage that fails in the worker (an unsigned tx) raises in
+    run_pipeline, counts as a failed proof and leaves every tx queued;
+    close() ends the worker process."""
+    env = _port_env(key[1])
+    contract, state, queue, daemon, app, *_ = env
+    contract.deposit(PUB_A[0], PUB_A[1], WEI)
+    contract.deposit(PUB_B[0], PUB_B[1], WEI)
+    app.sync_chain()
+    for nonce in (1, 2):
+        queue.push(Transaction(0, 1, _wei(10), _wei(1), nonce))
+    try:
+        with pytest.raises(ValueError, match="must be signed"):
+            daemon.run_pipeline(max_batches=1)
+        procs = list(daemon._witness_pool._processes.values())
+        assert len(procs) == 1 and procs[0].is_alive()
+    finally:
+        daemon.close()
+    procs[0].join(30)
+    assert not procs[0].is_alive()
+    assert daemon._witness_pool is None
+    assert queue.pending_count() == 2
+    assert daemon.metrics.proofs_failed == 1
+    assert daemon.metrics.batches_proven == 0
+
+
+def test_queue_is_safe_across_threads():
+    """run_pipeline's feeder thread reads the queue while its caller
+    settles batches: readers and a writer on one TxQueue at once, the
+    interpreter switching threads as often as it can, lose no cursor
+    update and raise nothing (one sqlite connection used from two threads
+    at once without the queue's lock raised InterfaceError and lost
+    updates)."""
+    import sys
+    queue = TxQueue()
+    n = 2000
+    for nonce in range(n):
+        queue.push(Transaction(0, 1, WEI, WEI // 100, nonce))
+    errors = []
+
+    def read():
+        try:
+            for i in range(n):
+                assert len(queue.peek_batch(2, start=i % (n - 2))) == 2
+                queue.pending_count()
+        except Exception as e:
+            errors.append(e)
+
+    def write():
+        try:
+            for _ in range(n // 2):
+                queue.mark_processed(1)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=read) for _ in range(3)]
+    threads.append(threading.Thread(target=write))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert queue.last_processed == n // 2
+    assert queue.pending_count() == n - n // 2
 
 
 @pytest.mark.parametrize("pkg", ["zkrollup_torch", "zkrollup"])

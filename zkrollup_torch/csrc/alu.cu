@@ -1,5 +1,5 @@
 // The integer-unit microbenchmark: alu_throughput_kernel<OP>, six
-// instantiations. It replaces tools/profile_vpu.py:make (the Pallas body
+// instantiations, and beside them mad_chain_kernel<HI>, two. It replaces tools/profile_vpu.py:make (the Pallas body
 // run by pl.pallas_call at :56), which probes the TPU vector unit. Here it
 // measures what the bound of the curve kernels only assumes: the rate of
 // 32-bit multiplies (and of the other ops beside them) on the H100.
@@ -25,6 +25,16 @@
 // 16.7 T/s multiply peak; the caller passes reps of 256 or more. Each rep
 // also carries two XORs, which the measured rate includes. (ptxas -v for
 // sm_90a, CUDA 12.8: 90 to 104 registers, no spill.)
+//
+// Beside the TPU tool's body, a multiply-only body (mad_chain_kernel<HI>,
+// alu_mad_lo and alu_mad_hi): per row, reps dependent multiply-adds,
+//
+//   acc = a ^ b; repeat reps times: acc = mad(acc, a, b);   out = acc
+//
+// with mad.lo.u32 (the low 32 bits of acc * a + b) or mad.hi.u32 (the high
+// 32 bits of acc * a, plus b), one IMAD or IMAD.HI a rep and nothing else
+// but the loop's counter. Its time is the multiplier's rate on 16
+// independent chains a thread, which the TPU body's XORs hide.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,12 +89,45 @@ alu_throughput_kernel(const uint32_t* __restrict__ a,
   for (int r = 0; r < ROWS; ++r) out[r * n + col] = acc[r];
 }
 
-template <int OP>
-int launch_alu(const void* a, const void* b, void* out, int64_t n, int reps,
-               void* stream) {
+template <bool HI>
+__device__ __forceinline__ uint32_t mad_u32(uint32_t x, uint32_t y,
+                                            uint32_t z) {
+  uint32_t d;
+  if constexpr (HI)
+    asm("mad.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(x), "r"(y), "r"(z));
+  else
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(x), "r"(y), "r"(z));
+  return d;
+}
+
+template <bool HI>
+__global__ void __launch_bounds__(256)
+mad_chain_kernel(const uint32_t* __restrict__ a,
+                 const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                 int64_t n, int reps) {
+  int64_t col = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  uint32_t x[ROWS], y[ROWS], acc[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    x[r] = a[r * n + col];
+    y[r] = b[r * n + col];
+    acc[r] = x[r] ^ y[r];
+  }
+#pragma unroll 4
+  for (int k = 0; k < reps; ++k) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) acc[r] = mad_u32<HI>(acc[r], x[r], y[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) out[r * n + col] = acc[r];
+}
+
+template <class Kernel>
+int launch_alu(Kernel kernel, const void* a, const void* b, void* out,
+               int64_t n, int reps, void* stream) {
   if (n > 0)
-    alu_throughput_kernel<OP><<<blocks_for(n, 256), 256, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<blocks_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
         static_cast<uint32_t*>(out), n, reps);
   return int(cudaGetLastError());
@@ -94,18 +137,20 @@ int launch_alu(const void* a, const void* b, void* out, int64_t n, int reps,
 
 extern "C" {
 
-#define ZKT_ALU_API(NAME, OP)                                              \
+#define ZKT_ALU_API(NAME, KERNEL)                                          \
   int zkt_alu_##NAME(const void* a, const void* b, void* out, int64_t n,   \
                      int reps, void* stream) {                             \
-    return zkt::launch_alu<OP>(a, b, out, n, reps, stream);                \
+    return zkt::launch_alu(KERNEL, a, b, out, n, reps, stream);            \
   }
 
-ZKT_ALU_API(mul, 0)
-ZKT_ALU_API(add, 1)
-ZKT_ALU_API(shift_add, 2)
-ZKT_ALU_API(f32_mul12, 3)
-ZKT_ALU_API(mul16, 4)
-ZKT_ALU_API(umulhi, 5)
+ZKT_ALU_API(mul, zkt::alu_throughput_kernel<0>)
+ZKT_ALU_API(add, zkt::alu_throughput_kernel<1>)
+ZKT_ALU_API(shift_add, zkt::alu_throughput_kernel<2>)
+ZKT_ALU_API(f32_mul12, zkt::alu_throughput_kernel<3>)
+ZKT_ALU_API(mul16, zkt::alu_throughput_kernel<4>)
+ZKT_ALU_API(umulhi, zkt::alu_throughput_kernel<5>)
+ZKT_ALU_API(mad_lo, zkt::mad_chain_kernel<false>)
+ZKT_ALU_API(mad_hi, zkt::mad_chain_kernel<true>)
 #undef ZKT_ALU_API
 
 }  // extern "C"

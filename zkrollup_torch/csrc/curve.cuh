@@ -2,8 +2,8 @@
 // CUDA kernels: one lane = one point (double) or one point pair (adds),
 // branch-free but for the warp votes of the doubling path: the add's over
 // FqCall (jac_add_lane) and in the Horner (horner_lane), the z01 add's
-// over Fq2Pair (jac_add_z01_voted_lane), the mixed add's over every type
-// (jac_madd_lane).
+// (jac_add_z01_voted_lane) and the mixed add's (jac_madd_lane) over every
+// type.
 //
 // Replace the point kernels of zkrollup/curve/pallas_curve.py (_add_kernel,
 // _add_nd_kernel, _add_z01_kernel, _make_madd_kernel(False),
@@ -246,10 +246,13 @@ ZKT_HD void horner_lane(const PointArgs& args, int64_t W, int c, bool live) {
 // Jacobian add WITHOUT the doubling path (pallas_curve.py:_add_nd_kernel,
 // pallas_curve_g2.py:_make_add_kernel(distinct=True)): the add path of
 // jac_add_lane, then P + (-P) -> infinity (Z only) wherever H = 0 with
-// neither operand infinite, then the infinity selects. Wrong when P == Q:
-// callers use it only where the operands are distinct points.
+// neither operand infinite, then the infinity selects. Wrong when P == Q
+// (H = R = 0: Z3 = 0 there too): callers use it only where the operands
+// are distinct points. A lane that is not `live` (past the ragged edge of
+// g2.cu's paired kernel) stores nothing.
 template <class E>
-ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i) {
+ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i,
+                            bool live = true) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
@@ -262,7 +265,7 @@ ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i) {
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool to_inf = H.is_zero() && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
-  store3(args, i, true, X3, Y3, Z3);
+  store3(args, i, live, X3, Y3, Z3);
 }
 
 // Unified add for operands whose Z is 0 or 1 EXACTLY (affine points or
@@ -271,16 +274,16 @@ ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i) {
 // U2 = X2, S2 = Y2 and Z3 = H (4 products, 2 squares); the affine double
 // (mdbl) of P through dbl_xy with Z3 = 2 Y1 (1 product, 5 squares); then
 // the selects in the kernel's order. A Z other than 0 or the Montgomery
-// one gives a wrong result. With VOTE a warp computes the double and its
-// selects only if one of its lanes has H = R = 0 with neither operand
-// infinite (jac_add's rule; every lane's result is the same), and every
-// thread of the warp must reach the vote: jac_add_z01_voted_lane, the
-// lane of g2.cu's paired kernel, which clamps its lane index. g1.cu's
-// one-thread kernel over Fq returns past the ragged edge and does not
-// vote.
-template <class E, bool VOTE = false>
-ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i,
-                             bool live = true) {
+// one gives a wrong result. A warp computes the double and its selects
+// only if one of its lanes has H = R = 0 with neither operand infinite
+// (jac_add's rule; every lane's result is the same as when every lane
+// computes it), so every thread of the warp must reach the vote: both
+// kernels on this lane (g1.cu's g1_add_z01_kernel over FqCall, g2.cu's
+// jac_add_z01_pair_kernel over Fq2Pair) launch whole warps and clamp
+// their lane index past the ragged edge, where `live` is false.
+template <class E>
+ZKT_HD void jac_add_z01_voted_lane(const PointArgs& args, int64_t i,
+                                   bool live) {
   using P = Planes<E>;
   constexpr int K = P::K;
   const E X1 = P::load(args.in + 0 * K, i), Y1 = P::load(args.in + 1 * K, i),
@@ -296,9 +299,7 @@ ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i,
   const bool h_zero = H.is_zero(), r_zero = R.is_zero();
   const bool p_inf = Z1.is_zero(), q_inf = Z2.is_zero();
   const bool same = h_zero && r_zero;
-  bool doubling = true;
-  if constexpr (VOTE) doubling = any_in_warp(same && !p_inf && !q_inf);
-  if (doubling) {
+  if (any_in_warp(same && !p_inf && !q_inf)) {
     E dX, dY;
     dbl_xy(dX, dY, X1, Y1);
     X3 = E::select(same, dX, X3);
@@ -308,15 +309,6 @@ ZKT_HD void jac_add_z01_lane(const PointArgs& args, int64_t i,
   const bool to_inf = h_zero && !r_zero && !p_inf && !q_inf;
   inf_selects(X3, Y3, Z3, to_inf, p_inf, q_inf, X1, Y1, Z1, X2, Y2, Z2);
   store3(args, i, live, X3, Y3, Z3);
-}
-
-// jac_add_z01_lane with its doubling path voted per warp, for a kernel
-// that clamps its lane index past the ragged edge (g2.cu's
-// jac_add_z01_pair_kernel over Fq2Pair).
-template <class E>
-ZKT_HD void jac_add_z01_voted_lane(const PointArgs& args, int64_t i,
-                                   bool live) {
-  jac_add_z01_lane<E, true>(args, i, live);
 }
 
 // The madd-2007-bl add path of P (Jacobian) + (x2, y2) taken with Z2 = 1:

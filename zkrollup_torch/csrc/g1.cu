@@ -1,9 +1,9 @@
-// The G1 point kernels: g1_add, g1_madd_nd and g1_madd over FqCall
-// (fq_call.cuh, the product called rather than inlined; g1_add_kernel,
-// g1_madd_nd_kernel, g1_madd_kernel), g1_add_nd and g1_add_z01 over Fq
-// (the templates of points.cuh), g1_double (the template) and the MSM's
-// Horner (g1_horner_kernel) over G1Dbl, FqCall too. Built by its own
-// nvcc, beside g2.cu, fields.cu and alu.cu.
+// The G1 point kernels: g1_add, g1_madd_nd, g1_madd and g1_add_z01 over
+// FqCall (fq_call.cuh, the product called rather than inlined;
+// g1_add_kernel, g1_madd_nd_kernel, g1_madd_kernel, g1_add_z01_kernel),
+// g1_add_nd over Fq (the template of points.cuh), g1_double (the template)
+// and the MSM's Horner (g1_horner_kernel) over G1Dbl, FqCall too. Built by
+// its own nvcc, beside g2.cu, fields.cu and alu.cu.
 //
 // g1_add and g1_madd_nd carry the G1 MSM of a proof: g1_madd_nd runs 127
 // launches of 74,492 lanes (the scan leg, 22 windows x 3,386 chunks),
@@ -24,6 +24,13 @@
 // 20 warps, g1_madd_nd spills 192; each ran slower than at these bounds
 // (g1_madd 4% at 482,413 lanes, chip_smoke.py --ab).
 //
+// g1_add_z01 carries the leaf level of the msm paths' Jacobian merge tree
+// (22 windows x 2^16 lanes, 1,441,792 a launch) and the GLV proof's z01
+// adds. Over Fq, one thread a lane with both paths computed on every lane,
+// it ran 6 + 6 products a lane; over FqCall with the doubling path voted
+// per warp (curve.cuh:jac_add_z01_voted_lane) a warp with no P == Q lane
+// runs the 6 of the add path alone. Its launch bounds are from ptxas -v
+// as for the others (chip_smoke.py phase 1; PERF.md has the registers).
 // g1_double and g1_horner share one element type, G1Dbl: FqCall. The
 // Horner's chain is the double's formula 264 times and the add's 22 times
 // on one warp. Over Fq, the product inlined, its loop body holds some 30
@@ -41,10 +48,13 @@ using G1Dbl = FqCall;
 constexpr int G1_ADD_MIN_BLOCKS = 3;
 constexpr int G1_MADD_ND_MIN_BLOCKS = 4;
 constexpr int G1_MADD_MIN_BLOCKS = 3;
+constexpr int G1_ADD_Z01_MIN_BLOCKS = 3;
 ZKT_LANE_KERNEL(g1_add_kernel, jac_add_lane, FqCall, G1_ADD_MIN_BLOCKS)
 ZKT_LANE_KERNEL(g1_madd_nd_kernel, jac_madd_nd_lane, FqCall,
                 G1_MADD_ND_MIN_BLOCKS)
 ZKT_LANE_KERNEL(g1_madd_kernel, jac_madd_lane, FqCall, G1_MADD_MIN_BLOCKS)
+ZKT_LANE_KERNEL(g1_add_z01_kernel, jac_add_z01_voted_lane, FqCall,
+                G1_ADD_Z01_MIN_BLOCKS)
 ZKT_HORNER_KERNEL(g1_horner_kernel, G1Dbl, 1)
 }  // namespace zkt
 
@@ -53,8 +63,8 @@ ZKT_POINT_API(g1, madd_nd, zkt::launch_point<zkt::FqCall>,
               zkt::g1_madd_nd_kernel, 2)
 ZKT_POINT_API(g1, add_nd, zkt::launch_point<zkt::Fq>,
               zkt::jac_add_nd_kernel<zkt::Fq>, 2)
-ZKT_POINT_API(g1, add_z01, zkt::launch_point<zkt::Fq>,
-              zkt::jac_add_z01_kernel<zkt::Fq>, 2)
+ZKT_POINT_API(g1, add_z01, zkt::launch_point<zkt::FqCall>,
+              zkt::g1_add_z01_kernel, 2)
 ZKT_POINT_API(g1, madd, zkt::launch_point<zkt::FqCall>, zkt::g1_madd_kernel,
               2)
 ZKT_POINT_API(g1, double, zkt::launch_point<zkt::G1Dbl>,

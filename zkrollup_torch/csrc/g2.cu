@@ -1,9 +1,9 @@
 // The G2 point kernels (over Fq2): g2_add, g2_madd_nd, g2_madd,
-// g2_double and g2_add_z01 on the paired Fq2 type, two threads a lane
-// (jac_add_pair_kernel, jac_madd_nd_pair_kernel, jac_madd_pair_kernel,
-// jac_double_pair_kernel, jac_add_z01_pair_kernel), and the MSM's Horner
-// on it (g2_horner_kernel, one warp); g2_add_nd over Fq2, one thread a
-// lane. Built by its own nvcc, beside g1.cu, fields.cu and alu.cu.
+// g2_double, g2_add_z01 and g2_add_nd on the paired Fq2 type, two threads
+// a lane (jac_add_pair_kernel, jac_madd_nd_pair_kernel,
+// jac_madd_pair_kernel, jac_double_pair_kernel, jac_add_z01_pair_kernel,
+// jac_add_nd_pair_kernel), and the MSM's Horner on it (g2_horner_kernel,
+// one warp). Built by its own nvcc, beside g1.cu, fields.cu and alu.cu.
 //
 // The paired kernels' launch bounds (PAIR_THREADS, PAIR_MIN_BLOCKS in
 // points.cuh) are set from ptxas -v for sm_90a (chip_smoke.py phase 1): no
@@ -22,6 +22,13 @@
 // registers and spilled 60 bytes; on pairs (jac_add_z01_pair_kernel) it
 // takes 168 at (128, 3) with no spill, its doubling path (the a and b2
 // tables' duplicates) voted per 16-lane warp (jac_add_z01_voted_lane).
+// The add without the doubling path (g2_add_nd, 44 Fq products a lane)
+// went onto pairs after it: over Fq2 on one thread, jac_add_nd<Fq2>, it
+// took 255 registers and spilled 60 bytes. jac_add_nd_pair_kernel runs
+// the same lane (curve.cuh:jac_add_nd_lane) with the Fq2 product called,
+// as the other paired kernels, at (PAIR_THREADS, PAIR_MIN_BLOCKS); it
+// keeps the distinct contract: where H = 0 with neither operand infinite
+// (P + (-P), and P + P, outside the contract) the result has Z = 0.
 #include "points.cuh"
 
 namespace zkt {
@@ -30,13 +37,13 @@ ZKT_PAIR_KERNEL(jac_madd_nd_pair_kernel, jac_madd_nd_lane)
 ZKT_PAIR_KERNEL(jac_madd_pair_kernel, jac_madd_lane)
 ZKT_PAIR_KERNEL(jac_double_pair_kernel, jac_double_lane)
 ZKT_PAIR_KERNEL(jac_add_z01_pair_kernel, jac_add_z01_voted_lane)
+ZKT_PAIR_KERNEL(jac_add_nd_pair_kernel, jac_add_nd_lane)
 ZKT_HORNER_KERNEL(g2_horner_kernel, Fq2Pair, 2)
 }  // namespace zkt
 
 ZKT_POINT_API(g2, add, zkt::launch_pair, zkt::jac_add_pair_kernel, 2)
 ZKT_POINT_API(g2, madd_nd, zkt::launch_pair, zkt::jac_madd_nd_pair_kernel, 2)
-ZKT_POINT_API(g2, add_nd, zkt::launch_point<zkt::Fq2>,
-              zkt::jac_add_nd_kernel<zkt::Fq2>, 2)
+ZKT_POINT_API(g2, add_nd, zkt::launch_pair, zkt::jac_add_nd_pair_kernel, 2)
 ZKT_POINT_API(g2, add_z01, zkt::launch_pair, zkt::jac_add_z01_pair_kernel, 2)
 ZKT_POINT_API(g2, madd, zkt::launch_pair, zkt::jac_madd_pair_kernel, 2)
 ZKT_POINT_API(g2, double, zkt::launch_pair, zkt::jac_double_pair_kernel, 1)

@@ -1,22 +1,24 @@
 // The zkrollup_torch point kernels: the lanes of curve.cuh over the
-// coordinate field E, one launch function each. Three are templates over E
-// (Fq, or FqCall for the double, in g1.cu; Fq2 in g2.cu, which builds one
-// of them, g2_add_nd); the add and both mixed adds are built over FqCall
-// (fq_call.cuh, one thread a G1 lane, g1.cu's g1_add, g1_madd_nd and
-// g1_madd) and over Fq2Pair (two threads a G2 lane, g2.cu's g2_add,
-// g2_madd_nd and g2_madd), and so are the double and the z01 add over
-// Fq2Pair (g2_double, g2_add_z01).
+// coordinate field E, one launch function each. Two are templates over E
+// (g1.cu's g1_add_nd over Fq and g1_double over FqCall); the add, both
+// mixed adds and the z01 add are built over FqCall (fq_call.cuh, one
+// thread a G1 lane, g1.cu's g1_add, g1_madd_nd, g1_madd and g1_add_z01)
+// and over Fq2Pair (two threads a G2 lane, g2.cu's g2_add, g2_madd_nd,
+// g2_madd and g2_add_z01), and so are the double and the add without the
+// doubling path over Fq2Pair (g2_double, g2_add_nd).
 // The Horner kernels run the MSM's whole combine on one warp (g1_horner
 // over FqCall, g2_horner over Fq2Pair).
 //
 //   jac_add         replaces pallas_curve.py:g1_add (_add_kernel) over
 //                   FqCall (g1_add_kernel); over Fq2Pair (jac_add_pair)
 //                   pallas_curve_g2.py:g2_add
-//   jac_add_nd<E>   replaces pallas_curve.py:g1_add_nd (_add_nd_kernel) and
+//   jac_add_nd      replaces pallas_curve.py:g1_add_nd (_add_nd_kernel)
+//                   over Fq; over Fq2Pair (jac_add_nd_pair)
 //                   pallas_curve_g2.py:g2_add_nd
-//   jac_add_z01<E>  replaces pallas_curve.py:g1_add_z01 (_add_z01_kernel)
-//                   over Fq; over Fq2Pair (jac_add_z01_pair, its doubling
-//                   path voted per warp) the XLA glue of
+//   jac_add_z01     (its doubling path voted per warp) replaces
+//                   pallas_curve.py:g1_add_z01 (_add_z01_kernel) over
+//                   FqCall (g1_add_z01_kernel); over Fq2Pair
+//                   (jac_add_z01_pair) the XLA glue of
 //                   weierstrass.py:_add_z01_generic, which has no Pallas
 //                   kernel (it differs from that glue in limbs on P + (-P)
 //                   lanes only, where the kernel zeroes Z alone)
@@ -53,9 +55,9 @@
 //   jac_add_z01 G1 6 + 6,       192 +  96 B;  G2 16 + 13,     384 + 192 B
 // The storage moves twice those bytes: every coordinate is a 64-byte row
 // of 16 int32 limbs, half of each word zero. The kernels are branch-free,
-// so every lane also computes the doubling path, but for g1_add, g1_madd,
-// g2_madd and the Horner's add, which compute it only in warps that need
-// it, and g2_add_z01, which votes it per warp. At 64 multiplies per SM
+// so every lane also computes the doubling path, but for g1_add, the
+// mixed adds, the z01 adds and the Horner's add, which compute it only in
+// warps that need it. At 64 multiplies per SM
 // per clock every point kernel is multiply-bound on the packed bytes; the
 // G1 double and the G1 add_z01 come closest to the balance point.
 //
@@ -73,14 +75,13 @@
 // warps, each on a long serial chain of 3 CIOS products an Fq2 product.
 // The one-thread kernels cap blocks at 128 threads (__launch_bounds__) and
 // accept the spill: it stays in L1 and no intermediate goes to device
-// memory. (ptxas -v for sm_90a, CUDA 12.8: jac_add_nd<Fq2> 255
-// registers and 60 bytes of spill stores; over Fq jac_add_nd 142 and
-// jac_add_z01 127, neither spilling. jac_add<Fq2>, jac_madd_nd<Fq2>,
-// jac_madd<Fq2> and jac_add_z01<Fq2>, which g2.cu no longer builds, took
-// 255 and spilled 172, 16, 20 and 60 bytes, and jac_double<Fq2> 137 with
-// no spill; jac_add<Fq>, jac_madd_nd<Fq>,
-// jac_madd<Fq> and jac_double<Fq>, which g1.cu no longer builds, 131,
-// 123, 128 and 64.) Over FqCall, its product called, the G1 kernels fit
+// memory. (ptxas -v for sm_90a, CUDA 12.8: over Fq jac_add_nd 142
+// registers, no spill. jac_add<Fq2>, jac_madd_nd<Fq2>, jac_madd<Fq2>,
+// jac_add_z01<Fq2> and jac_add_nd<Fq2>, which g2.cu no longer builds,
+// took 255 and spilled 172, 16, 20, 60 and 60 bytes, and jac_double<Fq2>
+// 137 with no spill; jac_add<Fq>, jac_madd_nd<Fq>, jac_madd<Fq>,
+// jac_double<Fq> and jac_add_z01<Fq>, which g1.cu no longer builds, 131,
+// 123, 128, 64 and 127.) Over FqCall, its product called, the G1 kernels fit
 // without spill at the launch bounds of g1.cu, whose comment gives their
 // registers. The Fq2Pair kernels
 // (fq2_pair.cuh) halve both: 8 registers a value and half the chain a
@@ -108,13 +109,12 @@ namespace zkt {
   }
 
 ZKT_POINT_KERNEL(jac_add_nd_kernel, jac_add_nd_lane)
-ZKT_POINT_KERNEL(jac_add_z01_kernel, jac_add_z01_lane)
 ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 #undef ZKT_POINT_KERNEL
 
 // A kernel of one thread a lane over E with at least MIN_BLOCKS blocks of
-// 128 threads resident an SM (g1.cu's g1_add, g1_madd_nd and g1_madd over
-// FqCall).
+// 128 threads resident an SM (g1.cu's g1_add, g1_madd_nd, g1_madd and
+// g1_add_z01 over FqCall).
 // Past the ragged edge a thread computes lane n - 1 again and stores
 // nothing, so that every thread of a warp reaches a warp vote.
 #define ZKT_LANE_KERNEL(NAME, LANE, E, MIN_BLOCKS)                         \
@@ -128,8 +128,8 @@ ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 // 2i+1. Past the ragged edge a thread computes lane n - 1 again, so that
 // every thread of a warp reaches the shuffles, and stores nothing.
 // Launch bounds from ptxas -v for sm_90a (chip_smoke.py phase 1): at 128
-// threads a block and 3 blocks an SM (12 warps) the three paired kernels
-// fit with no spill (g2.cu). A block is whole warps, so every warp is full
+// threads a block and 3 blocks an SM (12 warps) the paired kernels fit
+// with no spill (g2.cu). A block is whole warps, so every warp is full
 // and both threads of a pair sit in one warp.
 constexpr int PAIR_THREADS = 128;
 constexpr int PAIR_MIN_BLOCKS = 3;

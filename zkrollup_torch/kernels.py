@@ -59,7 +59,7 @@ _SIGS = {
                                               _P]) for g in ("g1", "g2")},
     **{f"alu_{op}": ("alu", f"zkt_alu_{op}", _ALU)
        for op in ("mul", "add", "shift_add", "f32_mul12", "mul16",
-                  "umulhi")},
+                  "umulhi", "mad_lo", "mad_hi")},
 }
 
 # launches per kernel since the last reset_launches(), their lanes, and

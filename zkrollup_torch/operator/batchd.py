@@ -10,8 +10,11 @@ SURVEY §5 failure-handling obligation), metrics counters.
 
 from __future__ import annotations
 
+import multiprocessing
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -19,7 +22,7 @@ from ..config import RollupConfig
 from ..chain.simulator import RollUpContract
 from .state import OperatorState
 from .queue import TxQueue
-from .prover import TxProver
+from .prover import PreparedBatch, TxProver
 
 
 @dataclass
@@ -63,6 +66,25 @@ class BatchDaemon:
         # threads (ThreadingHTTPServer); without it two concurrent steps
         # peek the same batch and double-submit/double-mark.
         self._step_lock = threading.Lock()
+        # run_pipeline's witness worker: one process, spawned on first use
+        # and kept until close()
+        self._witness_pool: Optional[ProcessPoolExecutor] = None
+
+    def close(self) -> None:
+        """Shut down run_pipeline's witness worker process, after the batch
+        it may be preparing (a later run_pipeline starts a new one)."""
+        pool, self._witness_pool = self._witness_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def _witness_worker(self) -> ProcessPoolExecutor:
+        # spawn, never fork: this process has threads and may have started
+        # CUDA
+        if self._witness_pool is None:
+            self._witness_pool = ProcessPoolExecutor(
+                max_workers=1,
+                mp_context=multiprocessing.get_context("spawn"))
+        return self._witness_pool
 
     def step(self) -> bool:
         """Process one batch if enough txs are queued. Returns True if a
@@ -119,18 +141,23 @@ class BatchDaemon:
         synthesis for batch i+1 overlaps proving of batch i.
 
         Correctness: the balance tree chains batch-to-batch through input
-        ASSEMBLY (prepare_batch returns the post-batch tree), not through
-        the proof — so a host thread prepares batches ahead along the
-        projected tree while the device proves in order. Submission,
-        mark_processed and state persistence stay strictly ordered in
-        this (single-writer) thread; a prove failure discards the
+        ASSEMBLY (the host stage returns the post-batch tree), not through
+        the proof. A feeder thread reads the queue ahead along the
+        projected tree and hands each batch to the witness worker, a
+        spawned process that runs the prover's host_stage (assembly and
+        witness-only synthesis) out of this interpreter's lock, while this
+        thread proves in order. Submission, mark_processed and state
+        persistence stay strictly ordered in this (single-writer) thread;
+        a failure of the witness stage or of a proof discards the
         speculative preparations and leaves every unproven tx queued.
+        The worker outlives the call: close() shuts it down.
         Returns the number of batches settled."""
         import queue as _q
         if not self._step_lock.acquire(blocking=False):
             return 0
         prepared: "_q.Queue" = _q.Queue(maxsize=queue_depth)
         stop = threading.Event()
+        worker = self._witness_worker()
 
         def witness_stage():
             # read ahead by queue index: the settling loop below moves the
@@ -149,10 +176,15 @@ class BatchDaemon:
                         continue
                     break
                 try:
-                    prep = self.prover.prepare_batch(tree, txs)
+                    fields = worker.submit(self.prover.host_stage, self.cfg,
+                                           tree, txs).result()
                 except Exception as e:       # surface in the prove thread
+                    if isinstance(e, BrokenProcessPool):
+                        # the worker died: the next call starts another
+                        self._witness_pool = None
                     prepared.put(e)
                     return
+                prep = PreparedBatch(txs=txs, **fields)
                 tree = prep.final_tree       # chain the projected tree
                 start += len(txs)
                 prepared_n += 1

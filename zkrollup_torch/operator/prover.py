@@ -22,7 +22,8 @@ from typing import Dict, List, Optional, Tuple
 from ..config import RollupConfig
 from ..r1cs.circuits import synthesize_batch_process_tx, synthesize_withdraw
 from ..tree.merkle import MerkleTree
-from ..witness.assembler import Transaction, assemble_batch_inputs
+from ..witness.assembler import Transaction
+from ..witness.batch import prepare_fields
 from ..groth16.keys import ProvingKey, Proof, r1cs_digest
 from ..groth16.prove import prove, prove_host
 from ..groth16.setup import setup, setup_host
@@ -99,12 +100,16 @@ class ProveStats:
 
 @dataclass
 class PreparedBatch:
-    """Output of the host witness stage, input of the device prove stage."""
+    """Output of the host witness stage, input of the device prove stage;
+    witness_s is assemble_s (the inputs from the tree) plus synth_s (the
+    witness-only synthesis)."""
     txs: List[Transaction]
     witness: List[int]
     public_signals: List[int]
     final_tree: MerkleTree
     witness_s: float = 0.0
+    assemble_s: float = 0.0
+    synth_s: float = 0.0
 
 
 class TxProver:
@@ -151,19 +156,17 @@ class TxProver:
                                      self.device)
         return self.pk
 
+    # The host stage as a function of (cfg, tree, txs) alone:
+    # BatchDaemon.run_pipeline runs it in its worker process.
+    host_stage = staticmethod(prepare_fields)
+
     def prepare_batch(self, tree: MerkleTree,
                       txs: List[Transaction]) -> PreparedBatch:
-        """Host stage: assemble inputs from the tree snapshot and replay the
-        witness-only synthesis."""
-        t0 = time.time()
-        inputs, final_tree = assemble_batch_inputs(tree, txs)
-        res = synthesize_batch_process_tx(
-            inputs, self.cfg.batch_size, self.cfg.tree_depth, record=False)
-        self.stats.witness_s = time.time() - t0
-        return PreparedBatch(txs=txs, witness=res.witness,
-                             public_signals=res.public_signals,
-                             final_tree=final_tree,
-                             witness_s=self.stats.witness_s)
+        """Host stage, in this process: assemble inputs from the tree
+        snapshot and replay the witness-only synthesis."""
+        prep = PreparedBatch(txs=txs, **self.host_stage(self.cfg, tree, txs))
+        self.stats.witness_s = prep.witness_s
+        return prep
 
     def prove_prepared(self, prep: PreparedBatch, r: Optional[int] = None,
                        s: Optional[int] = None) -> Proof:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import sqlite3
+import threading
 from typing import List, Optional
 
 from ..ref.eddsa import Signature
@@ -58,18 +59,24 @@ class TxQueue:
         self.conn = sqlite3.connect(path, check_same_thread=False)
         self.conn.executescript(_DDL)
         self.conn.commit()
+        # one connection, several threads (run_pipeline's feeder reads
+        # ahead while its caller settles; the HTTP server's threads): every
+        # use of it holds this lock
+        self._lock = threading.RLock()
 
     def _cursor(self, name: str) -> int:
-        row = self.conn.execute(
-            "SELECT value FROM cursors WHERE name=?", (name,)).fetchone()
+        with self._lock:
+            row = self.conn.execute(
+                "SELECT value FROM cursors WHERE name=?", (name,)).fetchone()
         return row[0] if row else 0
 
     def _set_cursor(self, name: str, value: int) -> None:
-        self.conn.execute(
-            "INSERT INTO cursors(name, value) VALUES(?,?) "
-            "ON CONFLICT(name) DO UPDATE SET value=excluded.value",
-            (name, value))
-        self.conn.commit()
+        with self._lock:
+            self.conn.execute(
+                "INSERT INTO cursors(name, value) VALUES(?,?) "
+                "ON CONFLICT(name) DO UPDATE SET value=excluded.value",
+                (name, value))
+            self.conn.commit()
 
     @property
     def last_inserted(self) -> int:
@@ -81,22 +88,25 @@ class TxQueue:
 
     def push(self, tx: Transaction) -> int:
         """send.ts:142-147: store at the current counter, bump it."""
-        idx = self.last_inserted
-        self.conn.execute(
-            "INSERT INTO tx_queue(idx, body) VALUES(?,?)",
-            (idx, _tx_to_json(tx)))
-        self._set_cursor(LAST_INSERTED, idx + 1)
+        with self._lock:
+            idx = self.last_inserted
+            self.conn.execute(
+                "INSERT INTO tx_queue(idx, body) VALUES(?,?)",
+                (idx, _tx_to_json(tx)))
+            self._set_cursor(LAST_INSERTED, idx + 1)
         return idx
 
     def pending_count(self) -> int:
-        return self.last_inserted - self.last_processed
+        with self._lock:
+            return self.last_inserted - self.last_processed
 
     def pending_txs(self) -> List[Transaction]:
         """All queued-but-unprocessed txs in order (admission projection)."""
-        rows = self.conn.execute(
-            "SELECT body FROM tx_queue WHERE idx >= ? AND idx < ? "
-            "ORDER BY idx", (self.last_processed, self.last_inserted)
-        ).fetchall()
+        with self._lock:
+            rows = self.conn.execute(
+                "SELECT body FROM tx_queue WHERE idx >= ? AND idx < ? "
+                "ORDER BY idx", (self.last_processed, self.last_inserted)
+            ).fetchall()
         return [_tx_from_json(r[0]) for r in rows]
 
     def peek_batch(self, batch_size: int, offset: int = 0,
@@ -107,14 +117,16 @@ class TxQueue:
         given, is the queue index of the first tx instead: the DP pipeline
         reads batch i+1 by index while batch i proves, since settling
         batch i moves the processed cursor under it."""
-        if start is None:
-            start = self.last_processed + offset
-        if self.last_inserted < start + batch_size:
-            return None
-        rows = self.conn.execute(
-            "SELECT body FROM tx_queue WHERE idx >= ? AND idx < ? "
-            "ORDER BY idx", (start, start + batch_size)).fetchall()
+        with self._lock:
+            if start is None:
+                start = self.last_processed + offset
+            if self.last_inserted < start + batch_size:
+                return None
+            rows = self.conn.execute(
+                "SELECT body FROM tx_queue WHERE idx >= ? AND idx < ? "
+                "ORDER BY idx", (start, start + batch_size)).fetchall()
         return [_tx_from_json(r[0]) for r in rows]
 
     def mark_processed(self, n: int) -> None:
-        self._set_cursor(LAST_PROCESSED, self.last_processed + n)
+        with self._lock:
+            self._set_cursor(LAST_PROCESSED, self.last_processed + n)

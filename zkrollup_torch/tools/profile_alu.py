@@ -1,5 +1,6 @@
 """Integer-unit throughput on an NVIDIA GPU: u32 multiply against add,
-shift, a 12-bit f32 multiply, a masked 16-bit multiply and __umulhi.
+shift, a 12-bit f32 multiply, a masked 16-bit multiply and __umulhi, and
+beside them chains of multiplies alone (mad.lo, mad.hi).
 
 Counterpart of tools/profile_vpu.py, the TPU vector-unit probe. The kernel
 (csrc/alu.cu, alu_throughput_kernel<OP>) computes what that tool's Pallas
@@ -7,11 +8,24 @@ body computes, per lane of a (16, n) uint32 array:
 
     acc = 0; repeat reps times: acc ^= op(a, b); a ^= acc;   out = acc
 
+Beside it, a multiply-only body (mad_chain_kernel<HI>, "mad_lo" and
+"mad_hi"), per lane:
+
+    acc = a ^ b; repeat reps times: acc = mad(acc, a, b);   out = acc
+
+with mad.lo.u32 (low 32 bits of acc * a + b) or mad.hi.u32 (high 32 bits
+of acc * a, plus b): one multiply instruction a rep, on 16 independent
+chains a thread.
+
 The plain version is the same loop in torch int64, masked to 32 bits; it
 is exact for every op. Rates are lane-ops per second, 16 n reps over the
 kernel's device time (CUDA events). reps must be large: a lane reads 8 B
 and writes 4 B, so at the TPU tool's 16 reps device memory alone caps the
 rate at 3.35 TB/s / 12 B x 16 = 4.5 T lane-ops/s, below the multiply peak.
+
+sass_counts reads the instructions of each kernel's loop from the built
+library (cuobjdump -sass), by class, per rep of one row: what the bound
+of each kernel counts.
 
     python -m zkrollup_torch.tools.profile_alu [--log-n 19] [--reps 1024]
 """
@@ -19,7 +33,12 @@ rate at 3.35 TB/s / 12 B x 16 = 4.5 T lane-ops/s, below the multiply peak.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
+import re
+import shutil
+import subprocess
 
 import torch
 
@@ -36,7 +55,19 @@ OPS = {
     "f32_mul12": "u32 mul via f32 (12-bit safe)",
     "mul16": "u16->u32 widening-style mul (masked)",
     "umulhi": "u32 mulhi (__umulhi)",
+    "mad_lo": "u32 mad.lo chain (multiplies alone)",
+    "mad_hi": "u32 mad.hi chain (multiplies alone)",
 }
+# the multiply-only bodies: op name -> whether it is mad.hi
+CHAINS = {"mad_lo": False, "mad_hi": True}
+# a kernel's loop body holds REPS_PER_ITER reps of every row: alu.cu's
+# `#pragma unroll 4` over reps, ROWS rows each
+REPS_PER_ITER = 4
+# the C++ kernel each op runs (sass_counts finds its loop by this name)
+KERNEL_OF = {**{op: f"alu_throughput_kernel<{i}>" for i, op in enumerate(
+    ("mul", "add", "shift_add", "f32_mul12", "mul16", "umulhi"))},
+             "mad_lo": "mad_chain_kernel<false>",
+             "mad_hi": "mad_chain_kernel<true>"}
 
 
 def _mul_lo(a, b):
@@ -77,10 +108,16 @@ def alu_plain(name: str, a: torch.Tensor, b: torch.Tensor,
     bits; returns int32 with the same bits."""
     x = a.to(torch.int64) & M32
     y = b.to(torch.int64) & M32
-    acc = torch.zeros_like(x)
-    for _ in range(reps):
-        acc = acc ^ _op(name, x, y)
-        x = x ^ acc
+    if name in CHAINS:
+        acc = x ^ y
+        mad = _mul_hi if CHAINS[name] else _mul_lo
+        for _ in range(reps):
+            acc = (mad(acc, x) + y) & M32
+    else:
+        acc = torch.zeros_like(x)
+        for _ in range(reps):
+            acc = acc ^ _op(name, x, y)
+            x = x ^ acc
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
 
 
@@ -147,6 +184,122 @@ def check(device, n: int = 4096, reps: int = 256) -> dict:
             raise AssertionError(f"alu {name}: kernel disagrees with its "
                                  "plain version")
     return errs
+
+
+# instruction classes of sm_90 SASS and their throughput in thread-
+# instructions a clock an SM for compute capability 9.0 (CUDA C++
+# Programming Guide, "Throughput of Native Arithmetic Instructions"): 32-bit
+# integer multiply and multiply-add (IMAD, IMAD.HI, IMAD.WIDE, and IMAD.MOV,
+# the moves ptxas writes as a multiply-add) 64; 32-bit integer add,
+# logic, shift, compare and select 64; 32-bit floating-point add,
+# multiply and fused multiply-add 128; conversions between 32-bit integer
+# and floating-point types 16. I2FP, the H100's integer-to-float
+# conversion, counts as an integer op: at 16 a clock the loop of
+# alu_f32_mul12 (one I2FP and one F2I a product) would take 4.11 ms at
+# (16, 2^19) and 1024 reps, where the card ran it in 2.25 (chip_smoke.py
+# phase 7 on an H100). Every other instruction counts only toward the
+# issue rate: 4 schedulers an SM, one warp-instruction a clock each, 128
+# thread-instructions a clock.
+SASS_CLASSES = {
+    "imad": ("IMAD", "IMUL"),
+    "int": ("IADD3", "IADD", "VIADD", "VIADDMNMX", "LOP3", "LOP", "SHF",
+            "SHL", "SHR", "ISETP", "SEL", "LEA", "IMNMX", "IABS", "PRMT",
+            "BMSK", "SGXT", "I2FP"),
+    "fp32": ("FMUL", "FADD", "FFMA", "FSETP", "FMNMX", "FSEL"),
+    "conv": ("I2F", "F2I", "F2IP", "FRND"),
+}
+CC90_PER_CLOCK = {"imad": 64, "int": 64, "fp32": 128, "conv": 16}
+ISSUE_PER_CLOCK = 128
+
+
+def _cuobjdump() -> str:
+    path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(path):
+        raise RuntimeError("cuobjdump not found (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _loop_opcodes(sass: str) -> list:
+    """The opcodes of the largest loop of one function's SASS: the
+    instructions from a branch's target to the branch back to it. The
+    target is an address (`BRA 0x190`, as cuobjdump prints it) or a label
+    (`BRA `(.L_x_3)`, with `.L_x_3:` before its instruction)."""
+    insts, labels = [], {}       # (address, opcode, branch target)
+    for line in sass.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(insts)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not m:
+            continue
+        target = None
+        if m.group(2).split(".")[0] == "BRA":
+            t = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", m.group(3))
+            target = t and (t.group(1) or int(t.group(2), 16))
+        insts.append((int(m.group(1), 16), m.group(2), target))
+    best = []
+    for k, (addr, _, target) in enumerate(insts):
+        if target is None:
+            continue
+        start = (labels.get(target) if isinstance(target, str) else
+                 next((i for i, x in enumerate(insts) if x[0] == target),
+                      None))
+        if start is not None and start <= k and k + 1 - start > len(best):
+            best = insts[start:k + 1]
+    return [op for _, op, _ in best]
+
+
+def classify(opcodes: list) -> dict:
+    """{class: instructions} over SASS_CLASSES and "other"; "total" is
+    every instruction."""
+    out = {c: 0 for c in (*SASS_CLASSES, "other")}
+    for op in opcodes:
+        base = op.split(".")[0]
+        cls = next((c for c, names in SASS_CLASSES.items() if base in names),
+                   "other")
+        out[cls] += 1
+    out["total"] = len(opcodes)
+    return out
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{op: {class: instructions per rep of one row}} from the loop of each
+    kernel in the built alu library (cuobjdump -sass): the loop's
+    instructions by class over REPS_PER_ITER x ROWS, its counter and
+    branch included; with the loop's opcodes under "opcodes". Raises if a
+    chain kernel's loop holds fewer IMADs than one a rep of every row."""
+    text = subprocess.run([_cuobjdump(), "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    per = REPS_PER_ITER * ROWS
+    out = {}
+    for op, kernel in KERNEL_OF.items():
+        name, arg = re.match(r"(\w+)<(\w+)>", kernel).groups()
+        # Itanium mangling: alu_throughput_kernel<2> is ...ILi2EE...,
+        # mad_chain_kernel<true> ...ILb1EE...
+        code = {"false": "Lb0E", "true": "Lb1E"}.get(arg, f"Li{arg}E")
+        body = [f for f in funcs if f.startswith("_ZN3zkt")
+                and f"{len(name)}{name}I{code}E" in f.split()[0]]
+        if len(body) != 1:
+            raise RuntimeError(f"{kernel}: {len(body)} functions in the SASS")
+        ops = _loop_opcodes(body[0])
+        counts = classify(ops)
+        if op in CHAINS and counts["imad"] < per:
+            raise AssertionError(f"{kernel}: {counts['imad']} IMADs in its "
+                                 f"loop, fewer than its {per} products")
+        out[op] = {c: v / per for c, v in counts.items()}
+        out[op]["opcodes"] = dict(collections.Counter(ops))
+    return out
+
+
+def issue_clocks(counts: dict) -> float:
+    """Clocks an SM needs per thread-rep of one row for `counts` (a value
+    of sass_counts): the largest of each class over its CC 9.0 throughput
+    and of every instruction over the issue rate."""
+    return max([counts[c] / r for c, r in CC90_PER_CLOCK.items()]
+               + [counts["total"] / ISSUE_PER_CLOCK])
 
 
 def rates(device, log_n: int = 19, reps: int = 1024,

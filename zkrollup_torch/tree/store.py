@@ -81,8 +81,9 @@ class TreeStore:
     def close(self):
         self.conn.close()
 
-    def save(self, name: str, mt: MerkleTree, leaf_index: Optional[int] = None) -> None:
-        cur = self.conn.cursor()
+    def _upsert_tree(self, cur, name: str, mt: MerkleTree) -> int:
+        """Write the tree's row (its state and caches as JSON); returns its
+        id."""
         cur.execute(
             """INSERT INTO merkletrees
                (name, depth, next_index, root, zero_value, zeros,
@@ -100,29 +101,38 @@ class TreeStore:
              json.dumps(_stringify(mt.filled_paths))),
         )
         cur.execute("SELECT id FROM merkletrees WHERE name=?", (name,))
-        tree_id = cur.fetchone()[0]
+        return cur.fetchone()[0]
 
-        # parity: save only the latest (or requested) leaf (merkletree.ts:326-355)
-        if leaf_index is None and mt.next_leaf_index == 0:
-            self.conn.commit()
-            return
-        sel = mt.next_leaf_index - 1 if leaf_index is None else leaf_index
-        cur.execute(
+    def _upsert_leaves(self, cur, tree_id: int, mt: MerkleTree,
+                       indices) -> None:
+        cur.executemany(
             """INSERT INTO leaves (merkletree_id, idx, raw, hash)
                VALUES (?,?,?,?)
                ON CONFLICT(merkletree_id, idx) DO UPDATE SET
                  raw=excluded.raw, hash=excluded.hash""",
-            (tree_id, sel, json.dumps(_stringify(mt.leaves_raw[sel])),
-             str(mt.leaves[sel])),
+            [(tree_id, i, json.dumps(_stringify(mt.leaves_raw[i])),
+              str(mt.leaves[i])) for i in indices],
         )
+
+    def save(self, name: str, mt: MerkleTree, leaf_index: Optional[int] = None) -> None:
+        cur = self.conn.cursor()
+        tree_id = self._upsert_tree(cur, name, mt)
+        # parity: save only the latest (or requested) leaf (merkletree.ts:326-355)
+        if leaf_index is not None or mt.next_leaf_index:
+            sel = mt.next_leaf_index - 1 if leaf_index is None else leaf_index
+            self._upsert_leaves(cur, tree_id, mt, [sel])
         self.conn.commit()
 
     def save_all_leaves(self, name: str, mt: MerkleTree) -> None:
         """Convenience beyond the reference: persist every leaf (used when
-        bootstrapping from a full tree rather than event-by-event)."""
-        self.save(name, mt, leaf_index=None if mt.next_leaf_index == 0 else 0)
-        for i in range(mt.next_leaf_index):
-            self.save(name, mt, leaf_index=i)
+        bootstrapping from a full tree rather than event-by-event). The
+        rows, their ids too, are those of the reference's save() of leaf 0
+        and then of every leaf; the tree's own row is written once."""
+        cur = self.conn.cursor()
+        tree_id = self._upsert_tree(cur, name, mt)
+        n = mt.next_leaf_index
+        self._upsert_leaves(cur, tree_id, mt, [0, *range(n)] if n else [])
+        self.conn.commit()
 
     def load(self, name: str) -> MerkleTree:
         cur = self.conn.cursor()
@@ -156,21 +166,17 @@ class TreeStore:
         cur = self.conn.execute("SELECT 1 FROM merkletrees WHERE name=?", (name,))
         return cur.fetchone() is not None
 
-    def verify_integrity(self, name: str, use_device: bool = True) -> bool:
+    def verify_integrity(self, name: str, use_device: bool = True,
+                         device="cuda") -> bool:
         """Recompute the FULL tree from the stored leaves and compare it with
         the persisted state: a corruption check on restore, beyond the
-        reference's trust-the-row semantics. Returns True when root and
-        caches match. The rebuild hashes on the host (ref.mimc); the
-        reference's batched MiMC on the device (zkrollup/tree/bulk.py) has
-        no counterpart in this package yet, so use_device=True (the
-        reference's default) raises."""
-        if use_device:
-            raise NotImplementedError(
-                "verify_integrity on the device needs the bulk MiMC tree "
-                "(zkrollup/tree/bulk.py, hash/mimc_jax.py), not yet ported "
-                "to zkrollup_torch; call it with use_device=False")
+        reference's trust-the-row semantics. The rebuild is bulk.from_leaves
+        (its large levels as batched MiMC on `device` with use_device).
+        Returns True when root and caches match."""
+        from .bulk import from_leaves
         stored = self.load(name)
-        rebuilt = create_merkle_tree(stored.depth, stored.zero_value)
-        for leaf, raw in zip(stored.leaves, stored.leaves_raw):
-            rebuilt.insert_(leaf, raw)
+        rebuilt = from_leaves(stored.leaves, stored.depth,
+                              stored.zero_value,
+                              leaves_raw=stored.leaves_raw,
+                              use_device=use_device, device=device)
         return stored.equals(rebuilt)
