@@ -8,10 +8,10 @@ Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
   1. build the CUDA kernels (four nvcc processes at once, one per source of
      zkrollup_torch/csrc, with each kernel's registers, spill and stack
-     frame from the ptxas report; the ten point kernels with launch
-     bounds, g1_add, g1_madd_nd, g1_madd, g1_add_z01, g2_add, g2_madd_nd,
-     g2_madd, g2_double, g2_add_z01 and g2_add_nd, and the two Horner
-     kernels must not spill,
+     frame from the ptxas report; the eleven point kernels with launch
+     bounds, g1_add, g1_madd_nd, g1_madd, g1_add_z01, g1_add_nd, g2_add,
+     g2_madd_nd, g2_madd, g2_double, g2_add_z01 and g2_add_nd, and the two
+     Horner kernels must not spill,
      six logged
      beside their registers before the unified add was factored out of
      its lane) and the native host engine (g++, from native/src into
@@ -52,9 +52,11 @@ Phases; any failure raises and the script exits non-zero:
      (timed); the z01 adds (g1_add_z01 over the called Fq product,
      g2_add_z01 on thread pairs) also at the msm_trees leaf level's
      1,441,792 lanes (timed there), on the warp-vote cases and on ragged
-     launches; the vote cases also with a P + (-P) lane; g2_add_nd (on
-     thread pairs, no doubling path) on ragged launches of 1, 22, 33 and
-     1,025 lanes and on one lane, its H = 0 lanes among them; the eight
+     launches; the vote cases also with a P + (-P) lane; the adds without
+     a doubling path (g1_add_nd over the called Fq product, g2_add_nd on
+     thread pairs) on ragged launches of 1, 22, 33 and 1,025 lanes and on
+     one lane, their H = 0 lanes (P + P, P + (-P)) and infinity operands
+     among them; the eight
      integer-unit kernels (the TPU tool's body over six ops, and two
      multiply-only chains) at the width and reps of phase 7's rate run
      (and at a small width), each bound by its loop's instructions by class
@@ -78,8 +80,9 @@ Phases; any failure raises and the script exits non-zero:
      steady proofs/s, with no stage syncs), two prove(timings=) calls for
      the stage seconds, one steady proof under torch.profiler (device busy
      share, device time by kernel name, peak memory) and evals_quotient's
-     parts on the host clock; then one more proof at the pinned (r, s)
-     whose G1 add
+     parts on the host clock, and two proofs with g2_backend="host" (the
+     G2 MSM on the native engine beside the card's G1 work; the same
+     bytes); then one more proof at the pinned (r, s) whose G1 add
      and madd_nd operands are kept (cuda_curve's wrappers are wrapped in
      this script for that proof only): for each g1_add launch the share of
      lanes and of 32-lane warps on the doubling path, then g1_add at its
@@ -128,7 +131,10 @@ Phases; any failure raises and the script exits non-zero:
      thread, the users' balances). Then the withdraw circuit (the
      "withdraw" path): WithdrawProver's key made on the card, equal to
      setup_host's byte for byte; a withdraw proof at pinned (r, s), equal
-     to the native engine's, paid out by the contract once and refused on
+     to the native engine's; that key as snarkjs JSON and as the websnark
+     binary, each loaded back and proving the same bytes on the card, its
+     verifying key and the proof through snarkjs JSON; the proof paid out
+     by the contract once and refused on
      nullifier reuse, with its launches and lanes; `demo-withdraw` through
      the CLI. Each kernel of the two paths must launch on it
  10. the bulk MiMC tree (the "mimc" path, every product on mont_mul[fr]):
@@ -140,13 +146,22 @@ Phases; any failure raises and the script exits non-zero:
      corrupted leaf hash; the level timed (host clock, CUDA events,
      hashes/s beside the engine's one-core rate), profiled, and its
      limbs.normalize calls on CUDA tensors counted
+ 11. the multi-device prover on a virtual mesh of DIST_SHARDS shards of
+     the card (the "dist" path, zkrollup_torch/dist): prove(mesh=) of
+     phase 4's batch at the pinned (r, s), with table_groups 1 and 2, each
+     self-verified and equal to phase 4's bytes, timed beside
+     prove(device=); the sharded NTT of 2^17 rows forward and inverse
+     against ntt.transform; sharded_msm_g1 / g2 over the key's a and b2
+     tables against the native engine; the path's launches, lanes and
+     limbs.normalize calls; then tools/multihost_sim.py (two processes,
+     gloo, two shards each on the card), which must print MULTIHOST OK
 The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
 nothing is printed as a result when a phase fails.
 
 With --ab, phases 0 and 1 only, then the point kernels of PROVE_SHAPES
-and SETUP_SHAPES, the doubles, the Horner kernels, the z01 adds, g2_add_nd
-and the inversion kernels (where CSRC has them; each of AB_KERNELS once, checked
+and SETUP_SHAPES, the doubles, the Horner kernels, the z01 adds, the nd
+adds and the inversion kernels (where CSRC has them; each of AB_KERNELS once, checked
 by check_ab_cases) of this checkout against those built from each CSRC
 directory (another commit's zkrollup_torch/csrc unpacked with `git
 archive`, or an edited copy of this one's), on phase 2's operands and on
@@ -244,10 +259,19 @@ PATHS = {
     # phase 10: the bulk MiMC tree (hash/mimc.py, tree/bulk.py), its
     # products on mont_mul[fr]
     "mimc": ("mont_mul[fr]",),
+    # phase 11: the multi-device prover on a virtual mesh (dist/): the
+    # evaluations, the sharded quotient (the local NTTs, the D-point DFT's
+    # products), each shard's window sums (distinct=False), the fold, the
+    # host combine's from_mont, and sharded_msm_g1 / g2's Horner
+    "dist": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
+             "g1_madd", "g1_add", "g2_madd", "g2_add", "g1_horner",
+             "g2_horner"),
 }
-# the paths phase 9 drives, and phase 10's; phase 8 checks the others
+# the paths phase 9 drives, phase 10's and phase 11's; phase 8 checks the
+# others
 LOOP_PATHS = ("operator", "withdraw")
 MIMC_PATHS = ("mimc",)
+DIST_PATHS = ("dist",)
 
 # -- the bound: the least time an H100 SXM could take for a kernel's work ---
 HBM_BYTES_PER_S = 3.35e12          # device memory rate (NVIDIA data sheet)
@@ -332,7 +356,7 @@ SETUP_LIMITS = {"g1_madd": (32, 32), "g2_madd": (32, 32),
 Z01_SHAPES = {"g1_add_z01": (1_441_792,), "g2_add_z01": (1_441_792,)}
 # point kernels without a doubling path that phase 2 holds on ragged
 # launches and one lane beyond 2^16 lanes (no warp vote)
-ND_SHAPES = {"g2_add_nd": ()}
+ND_SHAPES = {"g1_add_nd": (), "g2_add_nd": ()}
 # the inversion kernels in phase 2: the widest launch (the setup's G1
 # table; 2^17 for Fq2, its table 117,114 a slice of it), the other
 # widths as slices of its operand, and ragged launches
@@ -361,6 +385,7 @@ LAUNCH_BOUNDS = {"g1_add_kernel": (128, 3), "g1_madd_nd_kernel": (128, 4),
                  "jac_add_z01_pair_kernel": (128, 3),
                  "jac_add_nd_pair_kernel": (128, 3),
                  "g1_add_z01_kernel": (128, 3),
+                 "g1_add_nd_kernel": (128, 3),
                  "g1_horner_kernel": (32, 1), "g2_horner_kernel": (32, 1)}
 # ptxas registers of the kernels built before the unified add was factored
 # out of its lane for the Horner (CUDA 12.8, sm_90a), which that must not
@@ -1707,6 +1732,17 @@ def main_path(dev, prover, launches):
         log(f"  prove(timings=) {i + 1}: {time.time() - t0:.3f} s, stages "
             "(a device synchronize after each) " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stages.items()))
+    for i in range(2):
+        t0 = time.time()
+        hproof = prove(pk, r1cs, prep.witness, r=r0, s=s0, device=dev,
+                       c=prover.c, g2_backend="host")
+        log(f"  prove(g2_backend='host') {i + 1}: {time.time() - t0:.3f} s "
+            "(the G2 MSM on the native engine while the card runs G1"
+            + (", the b2 table packed for it first)" if i == 0 else ")"))
+        if proof_bytes(hproof) != proof_bytes(proof):
+            raise AssertionError("the proof with g2_backend='host' differs "
+                                 "from the device path's")
+    log("  its bytes equal the device path's")
     profile_proof(dev, prover, prep)
     return prep, proof_bytes(proof)
 
@@ -2355,6 +2391,41 @@ def operator_loop(dev, prover, launches):
     count_path(launches, "operator")
 
 
+def formats_round_trip(dev, pk, r1cs, res, proof):
+    """Phase 9, the withdraw key through the reference stack's formats
+    (groth16/interop.py): the proving key as snarkjs JSON text and as the
+    websnark binary, the verifying key and the proof as snarkjs JSON, each
+    loaded back; the loaded keys prove on the card at the pinned (r, s)
+    with the bytes of `proof`."""
+    from zkrollup_torch.groth16 import interop
+    from zkrollup_torch.groth16.prove import prove
+
+    t0 = time.time()
+    text = json.dumps(interop.proving_key_to_snarkjs(pk, r1cs))
+    raw = interop.binarify_proving_key(json.loads(text))
+    vk = interop.verifying_key_from_snarkjs(json.loads(json.dumps(
+        interop.verifying_key_to_snarkjs(pk.vk))))
+    back = interop.proof_from_snarkjs(json.loads(json.dumps(
+        interop.proof_to_snarkjs(proof))))
+    log(f"  withdraw key as snarkjs JSON {len(text)} bytes, websnark binary "
+        f"{len(raw)} bytes: {time.time() - t0:.3f} s")
+    if vk != pk.vk or proof_bytes(back) != proof_bytes(proof):
+        raise AssertionError("the verifying key or the proof changed "
+                             "through snarkjs JSON")
+    r0, s0 = PINNED_RS
+    for fmt, kj in (("snarkjs JSON", json.loads(text)),
+                    ("websnark binary", interop.stringify_bigints(
+                        interop.parse_websnark_proving_key(raw)))):
+        loaded = interop.proving_key_from_snarkjs(kj, vk=vk)
+        got = prove(loaded, res.r1cs, res.witness, r=r0, s=s0, device=dev,
+                    c=12)
+        if proof_bytes(got) != proof_bytes(proof):
+            raise AssertionError(f"the withdraw key loaded from {fmt} proves"
+                                 " other bytes")
+        log(f"  the key loaded from {fmt} proves on {dev} with the same "
+            "bytes")
+
+
 def withdraw_path(dev, launches):
     """Phase 9, the "withdraw" path: WithdrawProver's key made on the card
     against setup_host's, a proof at pinned (r, s) against the native
@@ -2416,6 +2487,7 @@ def withdraw_path(dev, launches):
         raise AssertionError("the withdraw proof differs from the native "
                              "engine's")
     log("  its bytes equal the native engine's")
+    formats_round_trip(dev, pk, r1cs, res, proof)
 
     contract = RollUpContract(RollupConfig(), tx_vk=None, withdraw_vk=pk.vk)
     pub = eddsa.gen_public_key(LOOP_PRIV[0])
@@ -2626,6 +2698,159 @@ def mimc_phase(dev, launches):
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
 
 
+# -- phase 11: the multi-device prover on a virtual mesh ------------------------
+
+# shards of the virtual mesh on the one card (make_mesh(DIST_SHARDS,
+# device="cuda:0")), and the sharded NTT's size (the (2,6) domain)
+DIST_SHARDS = 4
+DIST_NTT_LOG = 17
+
+
+def dist_phase(dev, prover, prep, want_bytes, launches):
+    """Phase 11, the "dist" path: zkrollup_torch/dist on a virtual mesh of
+    DIST_SHARDS shards of the card, counted from 0. prove(mesh=) of phase
+    4's batch with phase 3's key at the pinned (r, s), with table_groups 1
+    and 2 (each group's MSMs on CUDA streams of their own), each
+    self-verified and equal to phase 4's bytes (the native engine's);
+    their wall seconds beside prove(device=) on one card; the sharded NTT
+    of 2^DIST_NTT_LOG rows and its inverse against ntt.transform and the
+    input, and the relayout against cyclic_shard; sharded_msm_g1 / g2 over
+    the key's a and b2 tables (padded by infinity to a multiple of the
+    mesh, the a table's duplicates and infinity rows included) against the
+    native engine's Pippenger, as affine points; the path's launches,
+    lanes and limbs.normalize calls on CUDA tensors. Then
+    zkrollup_torch/tools/multihost_sim.py on the card over gloo, as a
+    subprocess, which must print MULTIHOST OK."""
+    import numpy as np
+    import torch
+    from zkrollup_torch import kernels
+    from zkrollup_torch.curve import g1, g2
+    from zkrollup_torch.dist import mesh as dm
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.groth16 import prove as P
+    from zkrollup_torch.groth16.verify import verify
+    from zkrollup_torch.native import engine
+    from zkrollup_torch.ntt import ntt
+    from zkrollup_torch.ref.bn254 import R as FR_MOD
+
+    pk, r1cs = prover.pk, prover.structure_r1cs()
+    r0, s0 = PINNED_RS
+    w = [v % FR_MOD for v in prep.witness]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    one = [wall(lambda: P.prove(pk, r1cs, prep.witness, r=r0, s=s0,
+                                device=dev, c=prover.c))[1]
+           for _ in range(2)]
+    mesh = dm.make_mesh(DIST_SHARDS, device=dev)
+    log(f"  {mesh}")
+    d = mesh.size
+    # The references first, so that the counted window below holds the
+    # path's own calls only: the single-device transform and its time, the
+    # key's padded tables, the scalars and the engine's Pippenger sums.
+    rng = np.random.RandomState(SEED + 11)
+    n = 1 << DIST_NTT_LOG
+    x = L.to_device(FR.to_mont_host(
+        [int.from_bytes(rng.bytes(32), "little") % FR.p
+         for _ in range(n)]), dev)
+    want_ntt = ntt.transform(x)
+    one_ms = wall_ms(lambda: ntt.transform(x))
+    tbl = P._dist_tables(pk, d, dev)
+    sc = L.to_device(L.ints_to_limbs(w), dev)
+    sc = torch.cat([sc, sc.new_zeros((tbl["pad_to"] - sc.shape[0], 16))])
+    w_bytes = engine.ints_to_fr_bytes(w)
+    want = {"g1": engine.g1_msm_pip(engine.pack_g1_table_mont(pk.a_g1),
+                                    w_bytes, pk.n_vars),
+            "g2": engine.g2_msm_pip(engine.pack_g2_table_mont(pk.b2_g2),
+                                    w_bytes, pk.n_vars)}
+    msms = (("g1", g1, g1.G1, dm.sharded_msm_g1, "a"),
+            ("g2", g2, g2.G2, dm.sharded_msm_g2, "b2"))
+
+    # The counted window: the mesh proofs, the sharded NTT, its relayout
+    # and inverse, and the sharded MSMs. Their results are checked after it.
+    kernels.reset_launches()
+    proofs, times, msm_out = [], {}, {}
+    with cuda_normalize_calls() as norm:
+        for groups in (1, 2):
+            for rep in range(2):
+                proof, secs = wall(lambda: P.prove(
+                    pk, r1cs, prep.witness, r=r0, s=s0, mesh=mesh,
+                    table_groups=groups, c=prover.c))
+                times.setdefault(groups, []).append(secs)
+                proofs.append((groups, proof))
+        proof_norm = norm[0]
+        fwd, fwd_s = wall(lambda: dm.sharded_ntt(mesh, dm.cyclic_shard(x, d),
+                                                 DIST_NTT_LOG))
+        cyc = dm.blocked_to_cyclic(mesh, fwd)
+        back, back_s = wall(lambda: dm.sharded_ntt(mesh, cyc, DIST_NTT_LOG,
+                                                   inverse=True))
+        for name, mod, curve, fn, t in msms:
+            msm_out[name] = wall(lambda: fn(mesh, tbl[t], sc, c=12))
+        torch.cuda.synchronize()
+    count_path(launches, "dist")
+    launches["dist_normalize_cuda"] = norm[0]
+
+    for groups, proof in proofs:
+        if not verify(pk.vk, proof, prep.public_signals):
+            raise AssertionError(f"the mesh proof (table_groups={groups}) "
+                                 "does not verify")
+        if proof_bytes(proof) != want_bytes:
+            raise AssertionError(f"the mesh proof (table_groups={groups}) "
+                                 "differs from phase 4's and the native "
+                                 "engine's")
+    for groups, secs in times.items():
+        log(f"  prove(mesh=, table_groups={groups}), self-verified, "
+            f"bytes equal phase 4's and the native engine's: "
+            + ", ".join(f"{t:.3f}" for t in secs) + " s wall (the key's"
+            " padded tables were placed on the card before the first)")
+    log(f"  prove(device=) on one card: "
+        + ", ".join(f"{t:.3f}" for t in one) + " s wall; "
+        f"limbs.normalize on CUDA tensors during the four mesh proofs: "
+        f"{proof_norm}")
+
+    if max_abs_err([dm.unblock(fwd)], [want_ntt]):
+        raise AssertionError("the sharded NTT differs from ntt.transform")
+    if max_abs_err(cyc, list(dm.cyclic_shard(dm.unblock(fwd), d))):
+        raise AssertionError("blocked_to_cyclic differs from cyclic_shard")
+    if max_abs_err([dm.unblock(back)], [x]):
+        raise AssertionError("the sharded inverse NTT does not give the "
+                             "input back")
+    log(f"  sharded NTT of 2^{DIST_NTT_LOG} rows over {d} shards: "
+        f"{fwd_s * 1e3:.3f} ms, inverse {back_s * 1e3:.3f} ms wall (one "
+        f"device's ntt.transform {one_ms:.3f} ms); equal to "
+        "ntt.transform, the relayout to cyclic_shard, the inverse to "
+        "the input")
+
+    for name, mod, curve, fn, t in msms:
+        pt, secs = msm_out[name]
+        got = mod.to_affine_host(curve.map(lambda a: a.reshape(1, 16), pt))[0]
+        if got != want[name]:
+            raise AssertionError(f"sharded_msm_{name} over the key's {t} "
+                                 "table differs from the native engine's")
+        log(f"  sharded_msm_{name} over the key's {t} table "
+            f"({tbl['pad_to']} rows, {d} shards): {secs:.3f} s wall, "
+            "equal to the native engine's")
+    log(f"  limbs.normalize on CUDA tensors on the dist path: {norm[0]}")
+
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "zkrollup_torch.tools.multihost_sim",
+         "--device", str(dev), "--backend", "gloo"], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        log(f"    {line}")
+    log(f"  multihost_sim --device {dev} --backend gloo: exit code "
+        f"{res.returncode}, {time.time() - t0:.1f} s")
+    if res.returncode or "MULTIHOST OK" not in res.stdout:
+        raise AssertionError("multihost_sim failed:\n" + res.stderr[-3000:])
+
+
 def launch_table(launches, paths):
     log(f"  {'kernel':14s} " + " ".join(f"{p:>19s}" for p in paths))
     for k in KERNELS:
@@ -2661,7 +2886,8 @@ def check_ab_cases(cases: list) -> None:
 def ab_run(dev, bases: list, keep) -> list:
     """--ab: the point kernels of PROVE_SHAPES and SETUP_SHAPES, the
     doubles, the Horner kernels, the z01 adds (at 2^16 lanes, Z01_SHAPES
-    and one lane), g2_add_nd (ND_SHAPES: 2^16 lanes and one lane) and the
+    and one lane), g1_add_nd and g2_add_nd (ND_SHAPES: 2^16 lanes and one
+    lane) and the
     inversion kernels (at the widest of INV_SHAPES and
     one lane, random operands with zero lanes) of this checkout against
     those built from each csrc/ directory of `bases`. Every unit they live
@@ -3104,7 +3330,8 @@ def main() -> int:
     curve_path(dev, launches)
 
     log("phase 8: launches, and lanes per launch, on each path")
-    earlier = [p for p in PATHS if p not in LOOP_PATHS + MIMC_PATHS]
+    earlier = [p for p in PATHS
+               if p not in LOOP_PATHS + MIMC_PATHS + DIST_PATHS]
     launch_table(launches, earlier)
     check_widest("prove", launches["prove"], PROVE_SHAPES)
     check_prove_limits(launches)
@@ -3123,6 +3350,11 @@ def main() -> int:
     mimc_phase(dev, launches)
     launch_table(launches, MIMC_PATHS)
     check_paths(launches, MIMC_PATHS)
+
+    log("phase 11: the multi-device prover on a virtual mesh of the card")
+    dist_phase(dev, prover, prep, want_bytes, launches)
+    launch_table(launches, DIST_PATHS)
+    check_paths(launches, DIST_PATHS)
     unlaunched = [k for k in KERNELS
                   if not any(launches[p][k][0] for p in PATHS)]
     if unlaunched:

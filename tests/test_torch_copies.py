@@ -243,13 +243,61 @@ def _tree_store(pkg):
     return seen + [store.verify_integrity("t", use_device=False)]
 
 
+# the lines of a snarkjs-written verifier that solvk reads: the Pairing
+# library's generators and a verifying key of two IC points (Fq2
+# coordinates imaginary first)
+_SNARKJS_VERIFIER = """
+    function P1() internal pure returns (G1Point) {
+        return G1Point(1, 2);
+    }
+    function P2() internal pure returns (G2Point) {
+        return G2Point([11, 12], [13, 14]);
+    }
+        vk.alfa1 = Pairing.G1Point(3, 4);
+        vk.beta2 = Pairing.G2Point([5, 6], [7, 8]);
+        vk.gamma2 = Pairing.G2Point([9, 10], [11, 12]);
+        vk.delta2 = Pairing.G2Point([13, 14], [15, 16]);
+        vk.IC = new Pairing.G1Point[](2);
+        vk.IC[1] = Pairing.G1Point(19, 20);
+        vk.IC[0] = Pairing.G1Point(17, 18);
+"""
+
+
+def _solvk(pkg):
+    import dataclasses
+    solvk = importlib.import_module(f"{pkg}.groth16.solvk")
+    return (dataclasses.astuple(solvk.parse_verifier_source(_SNARKJS_VERIFIER)),
+            solvk.parse_pairing_generators(_SNARKJS_VERIFIER))
+
+
+def _circom_loader(pkg):
+    import os
+    loader = importlib.import_module(f"{pkg}.r1cs.circom_loader")
+    r1 = loader.load_circom_json(os.path.join(
+        os.path.dirname(__file__), "fixtures", "circom035_multiplier.json"))
+    return (r1.n_vars, r1.n_outputs, r1.n_public_inputs, r1.n_public,
+            r1.constraints)
+
+
+def _cipher(pkg):
+    cipher = importlib.import_module(f"{pkg}.ref.cipher")
+    eddsa = importlib.import_module(f"{pkg}.ref.eddsa")
+    msg = [1, 0, 2 ** 253 + 5, 10 ** 18 + 7, 2 ** 300]
+    enc = cipher.encrypt(msg, PRIV_A)
+    pub = eddsa.gen_public_key(PRIV_A + 17)
+    env = cipher.ecdh_encrypt(msg, PRIV_A, pub)
+    return (enc.iv, enc.msg, cipher.decrypt(enc, PRIV_A), env.iv, env.msg,
+            cipher.ecdh_decrypt(env, PRIV_A, pub))
+
+
 CASES = {"synthesize_batch_process_tx": _synthesize, "merkle": _merkle,
          "eddsa": _eddsa, "mimc": _mimc, "keccak": _keccak,
          "pairing": _pairing, "config": _config,
          "engine_fixed_base": _fixed_base, "calldata": _calldata,
          "genverifier": _genverifier, "simulator": _simulator,
          "tx_queue": _queue, "validate_tx": _validation,
-         "tree_store": _tree_store}
+         "tree_store": _tree_store, "solvk": _solvk,
+         "circom_loader": _circom_loader, "cipher": _cipher}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -269,7 +317,8 @@ def test_copies_are_the_port_own_modules():
                  "chain.simulator", "chain.calldata", "chain.genverifier",
                  "chain.deploy", "tree.store", "operator.state",
                  "operator.queue", "operator.validation", "operator.batchd",
-                 "operator.service", "cli.main"):
+                 "operator.service", "cli.main", "groth16.solvk",
+                 "groth16.interop", "r1cs.circom_loader", "ref.cipher"):
         port, orig = _both(name)
         assert port is not orig
         assert port.__name__.startswith("zkrollup_torch.")

@@ -817,3 +817,81 @@ def test_provers_default_to_the_card(cuda_device):
     for name in ("g1_madd", "g2_madd", "ntt_pass", "g1_madd_nd",
                  "g2_madd_nd"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_g1_add_nd_ragged_matches_plain(cuda_device):
+    """g1_add_nd (one thread a lane, the Fq product called) on ragged
+    launches of 1, 22, 33 and 1,025 lanes, on 2^16 lanes and on each of
+    the special lanes alone: P + P and P + (-P) (H = 0), infinity on
+    either side and on both."""
+    curve, p, q = _point_operands("g1", cuda_device)
+    for m, off in ((1, 0), (22, 0), (33, 0), (1025, 0), (1 << 16, 0),
+                   (22, 50), (33, 40)) + tuple((1, k) for k in range(6)):
+        idx = (torch.arange(m, device=cuda_device) + off) % N
+        sub = [curve.map(lambda a: a.index_select(0, idx), t) for t in (p, q)]
+        got, want = (curve.leaves(f(curve, *sub))
+                     for f in (cuda_curve.add_nd, cuda_curve.add_nd_plain))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (m, off)
+
+
+def _affine(curve, jac):
+    mod = g1 if curve is g1.G1 else g2
+    return mod.to_affine_host(curve.map(lambda a: a.reshape(1, 16).cpu(),
+                                        jac))[0]
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_ntt_and_msm_on_cuda(cuda_device):
+    """Four shards on one card: the sharded NTT and its inverse against
+    the one-device transform, the relayout against cyclic_shard, and the
+    sharded G1 and G2 MSMs over tables with duplicates and infinity rows
+    against msm() on the CPU, as affine points."""
+    from zkrollup_torch import kernels
+    from zkrollup_torch.dist import mesh as dm
+    mesh = dm.make_mesh(4, device=cuda_device)
+    x = L.to_device(FR.to_mont_host(_values(FR.p, 1 << 10, 21)), cuda_device)
+    fwd = dm.sharded_ntt(mesh, dm.cyclic_shard(x, 4), 10)
+    assert torch.equal(dm.unblock(fwd), ntt.ntt_mont(x))
+    cyc = dm.blocked_to_cyclic(mesh, fwd)
+    assert all(torch.equal(a, b) for a, b in
+               zip(cyc, dm.cyclic_shard(dm.unblock(fwd), 4)))
+    assert torch.equal(dm.unblock(dm.sharded_ntt(mesh, cyc, 10, True)), x)
+    for curve, fn in ((g1.G1, dm.sharded_msm_g1), (g2.G2, dm.sharded_msm_g2)):
+        (px, py, inf), sc = _dup_table(curve, 200, 31)
+        on = lambda v: curve.F.from_leaves([a.to(cuda_device)
+                                            for a in curve.F.leaves(v)])
+        kernels.reset_launches()
+        got = fn(mesh, (on(px), on(py), inf.to(cuda_device)),
+                 sc.to(cuda_device), c=6)
+        assert kernels.LAUNCHES[f"{curve.name}_horner"] == 1
+        assert kernels.LAUNCHES[f"{curve.name}_add"] > 0
+        want = msm.msm(curve, (px, py, inf), sc, c=6)
+        assert _affine(curve, got) == _affine(curve, want)
+
+
+@pytest.mark.cuda
+def test_mesh_proof_on_cuda_equals_native_engine(cuda_device):
+    """prove(mesh=) of a small circuit on four virtual shards of the card,
+    with and without table groups (each on its own streams), against
+    prove_host at pinned (r, s)."""
+    from zkrollup_torch.dist import mesh as dm
+    from zkrollup_torch.groth16.prove import prove, prove_host
+    from zkrollup_torch.groth16.setup import setup_host
+    from zkrollup_torch.groth16.verify import verify
+    from zkrollup_torch.r1cs.builder import Builder
+    bld = Builder()
+    out = bld.alloc_output_deferred()
+    y = bld.alloc_public_input(7)
+    t = y
+    for _ in range(40):
+        t = bld.mul(t, t) + y
+    bld.bind_output(out, t)
+    r1cs, w = bld.r1cs(), bld.witness()
+    pk = setup_host(r1cs, seed=b"cuda-mesh")
+    want = prove_host(pk, r1cs, w, r=3, s=5)
+    mesh = dm.make_mesh(4, device=cuda_device)
+    for groups in (1, 2):
+        got = prove(pk, r1cs, w, r=3, s=5, mesh=mesh, table_groups=groups)
+        assert (got.a, got.b, got.c) == (want.a, want.b, want.c), groups
+    assert verify(pk.vk, got, bld.public_signals())

@@ -73,9 +73,10 @@ def _sources():
 
 
 def test_the_scan_covers_every_source():
-    """The port's subpackages, its tools and operator loop (chain,
-    operator, tree store, CLI) included, the smoke script and the on-card
-    tests."""
+    """The port's subpackages, its tools, operator loop (chain, operator,
+    tree store, CLI), multi-device prover (dist) and formats (interop,
+    solvk, circom_loader, cipher) included, the smoke script and the
+    on-card tests."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for want in ("zkrollup_torch/tools/profile_alu.py",
                  "zkrollup_torch/tools/g2_kernel_check.py",
@@ -92,7 +93,14 @@ def test_the_scan_covers_every_source():
                  "zkrollup_torch/operator/batchd.py",
                  "zkrollup_torch/operator/service.py",
                  "zkrollup_torch/cli/main.py",
-                 "zkrollup_torch/cli/__main__.py"):
+                 "zkrollup_torch/cli/__main__.py",
+                 "zkrollup_torch/dist/mesh.py",
+                 "zkrollup_torch/dist/launch.py",
+                 "zkrollup_torch/tools/multihost_sim.py",
+                 "zkrollup_torch/groth16/interop.py",
+                 "zkrollup_torch/groth16/solvk.py",
+                 "zkrollup_torch/r1cs/circom_loader.py",
+                 "zkrollup_torch/ref/cipher.py"):
         assert want in names
 
 

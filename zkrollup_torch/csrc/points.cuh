@@ -108,13 +108,12 @@ namespace zkt {
     if (i < n) LANE<E>(args, i);                                          \
   }
 
-ZKT_POINT_KERNEL(jac_add_nd_kernel, jac_add_nd_lane)
 ZKT_POINT_KERNEL(jac_double_kernel, jac_double_lane)
 #undef ZKT_POINT_KERNEL
 
 // A kernel of one thread a lane over E with at least MIN_BLOCKS blocks of
-// 128 threads resident an SM (g1.cu's g1_add, g1_madd_nd, g1_madd and
-// g1_add_z01 over FqCall).
+// 128 threads resident an SM (g1.cu's g1_add, g1_madd_nd, g1_madd,
+// g1_add_z01 and g1_add_nd over FqCall).
 // Past the ragged edge a thread computes lane n - 1 again and stores
 // nothing, so that every thread of a warp reaches a warp vote.
 #define ZKT_LANE_KERNEL(NAME, LANE, E, MIN_BLOCKS)                         \

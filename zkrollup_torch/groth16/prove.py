@@ -27,6 +27,19 @@ of the default path stays on the chunked scan, as in the reference. The
 reference selects both with ZKROLLUP_PROVE_GLV and ZKROLLUP_MSM_TREE at
 import; the port takes them as arguments.
 
+g2_backend="host" runs step 6 on the native engine instead
+(engine.g2_msm_pip over the b2 table, ZKROLLUP_G2_BACKEND=host in the
+reference), called after the G1 MSM is enqueued, so that the host's
+Pippenger overlaps the card's G1 work; the proof bytes are the same.
+
+mesh= runs the quotient and the five MSMs sharded over a dist/mesh.py
+Mesh (the reference's _prove_distributed): the A/B/C evaluations split
+cyclically, the four-step sharded quotient, every key table padded to one
+size divisible by the mesh and split into blocks, each block's window sums
+on its shard, the shards' window sums folded, then the host combine as
+above; table_groups > 1 deals the tables to disjoint groups of the mesh,
+each on its own CUDA streams. The same bytes again.
+
 prove_host mirrors the reference's host path (zkrollup/groth16/prove.py:
 _prove_host) on the native engine; it is the independent check the device
 proof is held against.
@@ -51,6 +64,7 @@ from ..ntt.ntt import COSET_SHIFT
 from ..curve import g1 as g1_mod
 from ..curve.g1 import G1
 from ..curve.g2 import G2
+from ..dist import mesh as dmesh
 from ..msm import msm
 from ..msm.glv import (combine_multi_window_sums_host,
                        combine_window_sums_host_g2, msm_glv)
@@ -251,22 +265,122 @@ def _check_rs(pk: ProvingKey, r1cs, r, s):
             secrets.randbelow(FR_MOD) if s is None else s)
 
 
+G2_BACKENDS = ("device", "host")
+
+
+def _host_b2(pk: ProvingKey):
+    """The b2 table packed for the native engine, cached on the key."""
+    tbl = pk.__dict__.get("_torch_host_b2")
+    if tbl is None:
+        tbl = engine.pack_g2_table_mont(pk.b2_g2)
+        pk.__dict__["_torch_host_b2"] = tbl
+    return tbl
+
+
+def _dist_tables(pk: ProvingKey, d: int, device="cpu"):
+    """Every G1 key table and b2 padded to ONE size divisible by the mesh
+    size d (infinity rows, whose zero scalars add nothing), on `device`:
+    the sharded MSMs split each into d blocks (zkrollup/groth16/prove.py:
+    _dist_tables). Cached on the key per (d, device)."""
+    cache = pk.__dict__.setdefault("_torch_dist_tables", {})
+    key = (d, str(torch.device(device)))
+    if key in cache:
+        return cache[key]
+    # a multiple of d, also where d does not divide the domain
+    pad_to = -(-max(pk.domain_size, pk.n_vars) // d) * d
+
+    def limbs(a):
+        return dmesh.pad_rows(L.to_device(np.asarray(a), device), pad_to)
+
+    def inf(a):
+        t = _dev(np.asarray(a, bool), device)
+        return torch.cat([t, t.new_ones((pad_to - t.shape[0], 1))])
+
+    def g1(tbl):
+        x, y, i = tbl
+        return (limbs(x), limbs(y), inf(i))
+
+    (bx0, bx1), (by0, by1), binf = pk.b2_g2
+    cache[key] = {
+        "pad_to": pad_to, "a": g1(pk.a_g1), "b1": g1(pk.b1_g1),
+        "c": g1(pk.c_g1), "h": g1(pk.h_g1),
+        "b2": ((limbs(bx0), limbs(bx1)), (limbs(by0), limbs(by1)),
+               inf(binf)),
+    }
+    return cache[key]
+
+
+def _prove_distributed(pk: ProvingKey, coo, witness: List[int], r: int,
+                       s: int, mesh, c: int, table_groups: int,
+                       tree: str) -> Proof:
+    """The quotient and the five MSMs sharded over `mesh`
+    (dist/mesh.py:distributed_prove_core), the evaluations made on the
+    mesh's first device and split cyclically, the blinding on the host
+    (zkrollup/groth16/prove.py:_prove_distributed)."""
+    d, device, m = mesh.size, mesh.devices[0], coo.m
+    w_plain = L.to_device(L.ints_to_limbs(witness), device)
+    a_e, b_e, c_e = _abc_evals(_coo_on(coo, device), FR.to_mont(w_plain), m)
+    z_coset = (pow(COSET_SHIFT, m, FR_MOD) - 1) % FR_MOD
+    zinv_mont = FR.const_mont(pow(z_coset, FR_MOD - 2, FR_MOD), device)
+    tbl = _dist_tables(pk, d, device)
+    w_sc = dmesh.pad_rows(w_plain, tbl["pad_to"])
+    c_sc = dmesh.pad_rows(w_plain[pk.n_public:], tbl["pad_to"])
+    _h, res = dmesh.distributed_prove_core(
+        mesh, *(dmesh.cyclic_shard(e, d) for e in (a_e, b_e, c_e)),
+        zinv_mont, m.bit_length() - 1,
+        g1_tables={"a": (tbl["a"], w_sc), "b1": (tbl["b1"], w_sc),
+                   "c": (tbl["c"], c_sc), "h": (tbl["h"], None)},
+        g2_table=(tbl["b2"], w_sc), c=c, table_groups=table_groups,
+        tree=tree)
+    # the four G1 tables' window sums (one block size: one c) as one
+    # (W, 4, 16) block, combined on the host as the single-device path does
+    c1 = res["a"][1]
+    wsum1 = G1.from_leaves([torch.stack(ls, 1) for ls in zip(
+        *(G1.leaves(res[t][0]) for t in ("a", "b1", "c", "h")))])
+    pi_a, pi_b1, pi_c, pi_h = combine_multi_window_sums_host(
+        _to_host_standard(G1, wsum1)(), c1)
+    wsum2, c2 = res["b2"]
+    pi_b = combine_window_sums_host_g2(_to_host_standard(G2, wsum2)(), c2)
+    return _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
+
+
 def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
-          s: Optional[int] = None, *, device, c: int = 12, glv: bool = False,
-          tree: str = "scan", timings: Optional[dict] = None) -> Proof:
-    """Groth16 proof of `witness` (full assignment, var 0 = 1) on `device`.
-    r, s pin the blinding (same inputs, same key => same proof bytes). c is
-    the Pippenger window; proofs do not depend on it, nor on glv (the GLV
-    G1 MSMs) or tree (the bucket strategy, msm.TREES). If `timings` is a
-    dict, each stage synchronises the device and records its seconds (and
-    the G2 MSM then no longer overlaps the host's G1 combine)."""
+          s: Optional[int] = None, *, device=None, c: int = 12,
+          glv: bool = False, tree: str = "scan",
+          timings: Optional[dict] = None, g2_backend: str = "device",
+          mesh=None, table_groups: int = 1) -> Proof:
+    """Groth16 proof of `witness` (full assignment, var 0 = 1) on `device`,
+    or sharded over `mesh` (a dist.mesh.Mesh; then no device). r, s pin
+    the blinding (same inputs, same key => same proof bytes). c is the
+    Pippenger window; proofs do not depend on it, nor on glv (the GLV G1
+    MSMs), tree (the bucket strategy, msm.TREES), g2_backend ("device", or
+    "host": the G2 MSM on the native engine, which must be built) or
+    table_groups (mesh only: the MSM tables on that many disjoint groups
+    of the mesh). If `timings` is a dict, each stage synchronises the
+    device and records its seconds (and the G2 MSM then no longer overlaps
+    the host's G1 combine)."""
     r, s = _check_rs(pk, r1cs, r, s)
     msm._check_tree(tree)
-    device = torch.device(device)
+    if g2_backend not in G2_BACKENDS:
+        raise ValueError(f"g2_backend={g2_backend!r}: must be one of "
+                         f"{G2_BACKENDS}")
+    if g2_backend == "host" and not engine.available():
+        raise RuntimeError("g2_backend='host' needs the native engine")
+    if (mesh is None) == (device is None):
+        raise ValueError("prove: pass device= or mesh=, one of them")
     coo = to_coo(r1cs)
     m = coo.m
     if m != pk.domain_size:
         raise ValueError("key/domain mismatch")
+    if mesh is not None:
+        if glv or timings is not None or g2_backend != "device":
+            raise ValueError("prove(mesh=) takes no glv, timings or "
+                             "g2_backend")
+        return _prove_distributed(pk, coo, [w % FR_MOD for w in witness],
+                                  r, s, mesh, c, table_groups, tree)
+    if table_groups != 1:
+        raise ValueError("table_groups needs mesh=")
+    device = torch.device(device)
     clock = [time.perf_counter()]
 
     def stage(name):
@@ -304,21 +418,30 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
         wsum1_host = _to_host_standard(G1, wsum1)
     stage("msm_g1")
 
-    # the G2 MSM is enqueued before the host waits for the G1 window sums
-    # (zkrollup/groth16/prove.py:460-486): without timings the card runs it
-    # while the host combines G1
-    g2p = _device_pack_g2(pk, device)
-    sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]), g2p["seg"],
-                          g2p["n_seg"])
-    wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2, c=min(c, 12),
-                                distinct=True, tree=tree)
-    wsum2_host = _to_host_standard(G2, wsum2)
+    if g2_backend == "host":
+        # the native engine's Pippenger runs here, while the card works
+        # through the G1 MSM enqueued above (zkrollup/groth16/prove.py:
+        # 495-500)
+        pi_b = engine.g2_msm_pip(
+            _host_b2(pk), engine.ints_to_fr_bytes(
+                [w % FR_MOD for w in witness]), pk.n_vars)
+    else:
+        # the G2 MSM is enqueued before the host waits for the G1 window
+        # sums (zkrollup/groth16/prove.py:460-486): without timings the
+        # card runs it while the host combines G1
+        g2p = _device_pack_g2(pk, device)
+        sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]),
+                              g2p["seg"], g2p["n_seg"])
+        wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2, c=min(c, 12),
+                                    distinct=True, tree=tree)
+        wsum2_host = _to_host_standard(G2, wsum2)
     stage("msm_g2")
 
     if not glv:
         g1_pts = combine_multi_window_sums_host(wsum1_host(), c1)
     pi_a, pi_b1, pi_c, pi_h = g1_pts
-    pi_b = combine_window_sums_host_g2(wsum2_host(), c2)
+    if g2_backend != "host":
+        pi_b = combine_window_sums_host_g2(wsum2_host(), c2)
     proof = _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
     stage("combine")
     return proof
@@ -340,13 +463,12 @@ def prove_host(pk: ProvingKey, r1cs, witness: List[int],
         tbl = {"a": engine.pack_g1_table_mont(pk.a_g1),
                "b1": engine.pack_g1_table_mont(pk.b1_g1),
                "c": engine.pack_g1_table_mont(pk.c_g1),
-               "h": engine.pack_g1_table_mont(pk.h_g1),
-               "b2": engine.pack_g2_table_mont(pk.b2_g2)}
+               "h": engine.pack_g1_table_mont(pk.h_g1)}
         pk.__dict__["_torch_host_tables"] = tbl
     nv, npub = pk.n_vars, pk.n_public
     pi_a = engine.g1_msm_pip(tbl["a"], w_bytes, nv)
     pi_b1 = engine.g1_msm_pip(tbl["b1"], w_bytes, nv)
     pi_c = engine.g1_msm_pip(tbl["c"], w_bytes[32 * npub:], nv - npub)
     pi_h = engine.g1_msm_pip(tbl["h"], h_bytes[:32 * (m - 1)], m - 1)
-    pi_b = engine.g2_msm_pip(tbl["b2"], w_bytes, nv)
+    pi_b = engine.g2_msm_pip(_host_b2(pk), w_bytes, nv)
     return _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
