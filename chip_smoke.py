@@ -6,7 +6,7 @@
 
 Phases; any failure raises and the script exits non-zero:
   0. the card's name and power limit; a CUDA device is required
-  1. build the CUDA kernels (four nvcc processes at once, one per source of
+  1. build the CUDA kernels (five nvcc processes at once, one per source of
      zkrollup_torch/csrc, with each kernel's registers, spill and stack
      frame from the ptxas report; the eleven point kernels with launch
      bounds, g1_add, g1_madd_nd, g1_madd, g1_add_z01, g1_add_nd, g2_add,
@@ -60,7 +60,18 @@ Phases; any failure raises and the script exits non-zero:
      integer-unit kernels (the TPU tool's body over six ops, and two
      multiply-only chains) at the width and reps of phase 7's rate run
      (and at a small width), each bound by its loop's instructions by class
-     as cuobjdump -sass shows them
+     as cuobjdump -sass shows them; the field add and sub (add[fr],
+     sub[fr], add[fq], sub[fq]) at 2^17 lanes with edge rows and at the
+     paths' 117,114, on ragged launches of 1, 22, 33 and 1,025 lanes and
+     with either operand one broadcast row, timed at both widths beside
+     the bound; the MiMC sponge (mimc_sponge[fr], the whole multi-hash of a
+     lane in one launch) at 2^17 pairs against its plain version (the
+     reference's loop over the plain product and add, timed) and the
+     native engine, at 2^17 four-wide rows against the engine, on ragged
+     launches of 1, 22, 33 and 1,025 lanes of four inputs under a key a
+     lane and a broadcast key, timed at both widths beside the bound and
+     one lane's latency bound, and beside the route of a mont_mul[fr] and
+     an add[fr] launch a step (mimc_loop), timed
   3. setup on the card: TxProver for the default BatchProcessTx(2, 6)
      config makes its key from a fixed seed with the fixed-base tables on
      the GPU (never read from a cache); setup_host makes the same key on
@@ -70,7 +81,10 @@ Phases; any failure raises and the script exits non-zero:
      its peak device memory; then
      the setup in parts on the host clock (the scalar derivation, the
      window tables, the scalars' encoding, each table's fixed-base loop and
-     normalisation, the copies back, _key), whose key must be the same
+     normalisation, the copies back, _key), whose key must be the same,
+     and the G2 normalisation timed again with FieldCtx.add / sub on their
+     carry loop (carry_loop_route), in turns; limbs.normalize on CUDA
+     tensors never, on the setup and in its parts
   4. the main path: two deposits, the two signed transfers of the demo
      rollup, one proof with the card-made key at pinned (r, s) that must
      self-verify and equal the native engine's proof byte for byte (the
@@ -97,7 +111,9 @@ Phases; any failure raises and the script exits non-zero:
      for limb, and msm() is timed with the Horner kernel and with the
      window sums and horner_loop, in turns; msm(tree="affine") is timed
      with the inversion kernel and with the route before it (the product
-     tree, its root by inv_loop), in turns, each equal to the native engine
+     tree, its root by inv_loop), in turns, each equal to the native engine,
+     and with FieldCtx.add / sub on their carry loop (carry_loop_route), in
+     turns; limbs.normalize on CUDA tensors never on the two paths
   6. the GLV prover with the Jacobian merge tree (TxProver(glv=True,
      tree="jacobian"), the "prove_glv" path): the batch of phase 4 at the
      same pinned (r, s), whose bytes must equal phase 4's proof and the
@@ -137,23 +153,28 @@ Phases; any failure raises and the script exits non-zero:
      by the contract once and refused on
      nullifier reuse, with its launches and lanes; `demo-withdraw` through
      the CLI. Each kernel of the two paths must launch on it
- 10. the bulk MiMC tree (the "mimc" path, every product on mont_mul[fr]):
-     merkle_level_up over 2^17 pairs, bit for bit against the native
+ 10. the bulk MiMC tree (the "mimc" path, one mimc_sponge[fr] launch a
+     level or a batch): merkle_level_up over 2^17 pairs, bit for bit
+     against the native
      engine; bulk.from_leaves over a depth-18 tree at its capacity (2^17 - 1
      leaves), its root and caches against the engine's levels;
      multi_hash_rows over 2^17 four-wide rows against the engine;
      TreeStore.verify_integrity on that tree, True, then False after a
      corrupted leaf hash; the level timed (host clock, CUDA events,
-     hashes/s beside the engine's one-core rate), profiled, and its
-     limbs.normalize calls on CUDA tensors counted
+     hashes/s beside the engine's one-core rate) in turns with mimc_loop
+     on the add and sub kernels and on the carry loop (the route before
+     both kernels), profiled; limbs.normalize on CUDA tensors never on the
+     path nor in the profiled level
  11. the multi-device prover on a virtual mesh of DIST_SHARDS shards of
      the card (the "dist" path, zkrollup_torch/dist): prove(mesh=) of
      phase 4's batch at the pinned (r, s), with table_groups 1 and 2, each
      self-verified and equal to phase 4's bytes, timed beside
      prove(device=); the sharded NTT of 2^17 rows forward and inverse
      against ntt.transform; sharded_msm_g1 / g2 over the key's a and b2
-     tables against the native engine; the path's launches, lanes and
-     limbs.normalize calls; then tools/multihost_sim.py (two processes,
+     tables against the native engine; the path's launches and lanes,
+     limbs.normalize on CUDA tensors never; the steady mesh proof timed
+     again with FieldCtx.add / sub on their carry loop (carry_loop_route),
+     in turns; then tools/multihost_sim.py (two processes,
      gloo, two shards each on the card), which must print MULTIHOST OK
 The last three lines of standard output are one JSON object with the kernel
 list, the card's name and power limit, and one JSON object with the device;
@@ -208,6 +229,15 @@ KERNELS = {
     # (mont_pow_const; over Fq2 through the norm, zkrollup/fields/fq2.py:51)
     "inv[fq]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:159"),
     "inv[fq2]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:159"),
+    # no Pallas kernel: FieldCtx.add / sub, lax.scan carry chains inside
+    # the traced program
+    "add[fr]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:71"),
+    "sub[fr]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:76"),
+    "add[fq]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:71"),
+    "sub[fq]": (_CSRC + "fields.cu", "zkrollup/fields/mont.py:76"),
+    # no Pallas kernel: the sponge's 220-round lax.scan
+    # (mimc_jax.py:41 permute_mont) inside multi_hash_mont
+    "mimc_sponge[fr]": (_CSRC + "mimc.cu", "zkrollup/hash/mimc_jax.py:64"),
     "g1_madd_nd": (_CSRC + "g1.cu", _PC + "504"),
     "g1_add": (_CSRC + "g1.cu", _PC + "480"),
     "g2_madd_nd": (_CSRC + "g2.cu", _PC2 + "304"),
@@ -234,14 +264,15 @@ KERNELS = {
 
 # the kernels each path must launch
 PATHS = {
-    "setup": ("mont_mul[fq]", "inv[fq]", "inv[fq2]", "g1_madd", "g2_madd"),
+    "setup": ("mont_mul[fq]", "inv[fq]", "inv[fq2]", "g1_madd", "g2_madd",
+              "add[fq]", "sub[fq]"),
     "prove": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
               "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
     "msm": ("g1_madd", "g2_madd", "g1_horner", "g2_horner", "g1_add",
             "g2_add"),
     "msm_trees": ("mont_mul[fq]", "inv[fq]", "inv[fq2]", "g1_add", "g2_add",
                   "g1_add_z01", "g2_add_z01", "g1_madd", "g1_horner",
-                  "g2_horner"),
+                  "g2_horner", "add[fq]", "sub[fq]"),
     "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                   "g1_add_z01", "g1_add", "g2_add_z01", "g2_add"),
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
@@ -255,17 +286,18 @@ PATHS = {
                  "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
     "withdraw": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                  "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add", "g1_madd",
-                 "g2_madd", "inv[fq]", "inv[fq2]"),
-    # phase 10: the bulk MiMC tree (hash/mimc.py, tree/bulk.py), its
-    # products on mont_mul[fr]
-    "mimc": ("mont_mul[fr]",),
+                 "g2_madd", "inv[fq]", "inv[fq2]", "add[fq]", "sub[fq]"),
+    # phase 10: the bulk MiMC tree (hash/mimc.py, tree/bulk.py), one
+    # sponge launch a level or a batch
+    "mimc": ("mimc_sponge[fr]",),
     # phase 11: the multi-device prover on a virtual mesh (dist/): the
     # evaluations, the sharded quotient (the local NTTs, the D-point DFT's
     # products), each shard's window sums (distinct=False), the fold, the
-    # host combine's from_mont, and sharded_msm_g1 / g2's Horner
+    # host combine's from_mont, and sharded_msm_g1 / g2's Horner; the
+    # D-point sums on add[fr], the quotient's pointwise step on sub[fr]
     "dist": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
              "g1_madd", "g1_add", "g2_madd", "g2_add", "g1_horner",
-             "g2_horner"),
+             "g2_horner", "add[fr]", "sub[fr]"),
 }
 # the paths phase 9 drives, phase 10's and phase 11's; phase 8 checks the
 # others
@@ -362,6 +394,14 @@ ND_SHAPES = {"g1_add_nd": (), "g2_add_nd": ()}
 # widths as slices of its operand, and ragged launches
 INV_SHAPES = {"inv[fq]": (482_413, 1 << 17), "inv[fq2]": (1 << 17, 117_114)}
 INV_RAGGED = (1, 22, 33, 1025)
+# the add and sub kernels in phase 2: 2^17 lanes (edge rows first), the
+# paths' 117,114 (the setup's G2 table and the mesh's padded rows) as a
+# slice, and ragged launches
+ADD_SUB_WIDTHS = (1 << 17, 117_114)
+ADD_SUB_RAGGED = (1, 22, 33, 1025)
+# mimc_sponge[fr] in phase 2 and 10: the Fr products a lane does, 3 a
+# round, 220 rounds an input
+MIMC_PRODUCTS_PER_INPUT = 3 * 220
 # the kernels --ab holds against the builds of other csrc/ (ab_run)
 AB_KERNELS = (*PROVE_SHAPES, *SETUP_SHAPES, "g1_double", "g2_double",
               "g1_horner", "g2_horner", *Z01_SHAPES, *ND_SHAPES,
@@ -386,7 +426,8 @@ LAUNCH_BOUNDS = {"g1_add_kernel": (128, 3), "g1_madd_nd_kernel": (128, 4),
                  "jac_add_nd_pair_kernel": (128, 3),
                  "g1_add_z01_kernel": (128, 3),
                  "g1_add_nd_kernel": (128, 3),
-                 "g1_horner_kernel": (32, 1), "g2_horner_kernel": (32, 1)}
+                 "g1_horner_kernel": (32, 1), "g2_horner_kernel": (32, 1),
+                 "mimc_sponge_kernel": (128, 1)}
 # ptxas registers of the kernels built before the unified add was factored
 # out of its lane for the Horner (CUDA 12.8, sm_90a), which that must not
 # change; phase 1 logs them beside this build's
@@ -645,8 +686,8 @@ def inv_loop(a):
 
 def inv2_loop(a):
     """The Fq2 inversion as it ran before the inversion kernel: the norm by
-    two mont_mul[fq] launches and FQ.add (a carry loop that reads back),
-    inv_loop, then (a0 n^-1, -(a1 n^-1)) by three more launches."""
+    two mont_mul[fq] launches and FQ.add, inv_loop, then (a0 n^-1,
+    -(a1 n^-1)) by three more launches."""
     from zkrollup_torch.fields.mont import FQ
     norm = FQ.add(FQ.mont_mul(a[0], a[0]), FQ.mont_mul(a[1], a[1]))
     ninv = inv_loop(norm)
@@ -669,6 +710,61 @@ def inv_loop_route():
     finally:
         W.batch_inverse = saved[0]
         W.FqOps.inv, W.Fq2Ops.inv = saved[1], saved[2]
+
+
+@contextlib.contextmanager
+def carry_loop_route():
+    """While open, FieldCtx.add and sub run as they did before the add and
+    sub kernels, on every device: their plain versions, limbs.normalize's
+    carry loop, which reads a flag back to the host on every pass."""
+    from zkrollup_torch.fields import cuda_mont
+    saved = cuda_mont.add, cuda_mont.sub
+    cuda_mont.add, cuda_mont.sub = cuda_mont.add_plain, cuda_mont.sub_plain
+    try:
+        yield
+    finally:
+        cuda_mont.add, cuda_mont.sub = saved
+
+
+def mimc_loop(inputs):
+    """The sponge as it ran before mimc_sponge[fr], the baseline phases 2
+    and 10 time it against: the reference's loop over the rounds
+    (mimc.permute_mont), a mont_mul[fr] launch a product and FR.add an add
+    (the add[fr] kernel; the carry loop inside carry_loop_route)."""
+    import torch
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.hash import mimc
+    zeros = torch.zeros(inputs.shape[:-2] + (L.N_LIMBS,), dtype=L.DTYPE,
+                        device=inputs.device)
+    r, c = zeros, zeros
+    for i in range(inputs.shape[-2]):
+        r = FR.add(r, inputs[..., i, :])
+        r, c = mimc.permute_mont(r, c, zeros)
+    return r
+
+
+def mimc_operands() -> dict:
+    """Phase 2's and phase 10's MiMC data from the seed: MIMC_PAIRS pairs'
+    values and the native engine's hashes of them, a depth-MIMC_DEPTH
+    tree's 2^(MIMC_DEPTH - 1) - 1 leaves, MIMC_ROWS four-wide rows and the
+    engine's hashes of them."""
+    import numpy as np
+    from zkrollup_torch.fields.mont import FR
+    rng = np.random.RandomState(SEED + 10)
+    rand = lambda n: [int.from_bytes(rng.bytes(32), "little") % FR.p
+                      for _ in range(n)]
+    vals = rand(2 * MIMC_PAIRS)
+    pairs = [vals[i:i + 2] for i in range(0, len(vals), 2)]
+    t0 = time.time()
+    want_level = engine_rows(pairs)
+    log(f"  the engine's {MIMC_PAIRS} pair hashes on {ENGINE_THREADS} "
+        f"threads: {time.time() - t0:.3f} s")
+    leaves = rand((1 << (MIMC_DEPTH - 1)) - 1)
+    flat = rand(4 * MIMC_ROWS)
+    rows = [flat[i:i + 4] for i in range(0, len(flat), 4)]
+    return {"vals": vals, "pairs": pairs, "want_level": want_level,
+            "leaves": leaves, "rows": rows, "want_rows": engine_rows(rows)}
 
 
 def zero_lanes(n: int, per_thread: int) -> list:
@@ -805,6 +901,160 @@ def check_inv(dev, rand_fe, results):
             f"bound {res['one_lane_latency_bound_ms']:.4f} ms")
 
 
+def check_add_sub(dev, rand_fe, results):
+    """Phase 2, add[fr], sub[fr], add[fq], sub[fq] (FieldCtx.add / sub on
+    CUDA tensors): bit for bit against add_plain / sub_plain at
+    ADD_SUB_WIDTHS (2^17 lanes with 0, 1, p - 1, a + b = p exactly and a
+    borrowing difference in the first rows, and 117,114 as a slice), on
+    ragged launches of ADD_SUB_RAGGED lanes and with either operand one
+    broadcast row. Timed at each width beside the bound (3 values of 32 B
+    a lane over the memory rate), wall ms at 2^17, and the plain version's
+    wall ms (its carry loop syncs on every pass) at 2^17."""
+    import functools
+    from zkrollup_torch.fields import cuda_mont, limbs as L
+    from zkrollup_torch.fields.mont import FR, FQ
+
+    big = ADD_SUB_WIDTHS[0]
+    for F in (FR, FQ):
+        a, b = rand_fe(big), rand_fe(big)
+        v = F.p // 3
+        a[:6] = L.to_device(L.ints_to_limbs(
+            [0, F.p - 1, 1, F.p - 1, v, 1]), dev)
+        b[:6] = L.to_device(L.ints_to_limbs(
+            [0, 1, F.p - 1, F.p - 1, F.p - v, 2]), dev)
+        for op in ("add", "sub"):
+            name = f"{op}[{F.name}]"
+            fn = getattr(F, op)
+            plain = functools.partial(getattr(cuda_mont, f"{op}_plain"), F)
+            want = plain(a, b)
+            cases = [(n, fn(a[:n], b[:n]), want[:n])
+                     for n in ADD_SUB_WIDTHS + ADD_SUB_RAGGED]
+            cases += [("b one row", fn(a, b[5]), plain(a, b[5])),
+                      ("a one row", fn(a[4], b), plain(a[4], b))]
+            for what, got, w in cases:
+                if got.shape != w.shape or max_abs_err([got], [w]):
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version ({what} lanes)")
+            shapes = {}
+            for n in ADD_SUB_WIDTHS:
+                x, y = a[:n], b[:n]
+                bnd = bound(0, 3 * VALUE_BYTES * n)
+                shapes[str(n)] = {"ms": cuda_ms(lambda: fn(x, y), 50),
+                                  "bound_ms": bnd[0], "bound_by": bnd[1]}
+            top = shapes[str(big)]
+            res = {"max_abs_err": 0, "lanes": big, "ms": top["ms"],
+                   "plain_ms": wall_ms(lambda: plain(a, b)),
+                   "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                   "library_ms": None, "shapes": shapes,
+                   "wall_ms": wall_ms(lambda: fn(a, b))}
+            results[name] = res
+            log(f"  {name:13s} {' and '.join(map(str, ADD_SUB_WIDTHS))} "
+                f"lanes, ragged {ADD_SUB_RAGGED}, either operand one row: "
+                "max_abs_err 0 against the plain version; " + "; ".join(
+                    f"{n} lanes: kernel {r['ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    for n, r in shapes.items())
+                + f"; {big} lanes: wall {res['wall_ms']:.4f} ms, plain "
+                f"(carry loop) wall {res['plain_ms']:.3f} ms")
+
+
+def mimc_kernel_registers():
+    """(registers, resident 128-thread warps an SM) of mimc_sponge_kernel
+    from this build's ptxas report."""
+    from zkrollup_torch import kernels
+    regs = [v[0] for e, v in ptxas_report(kernels.build_info["logs"]).items()
+            if "18mimc_sponge_kernelE" in e and v[0] is not None]
+    if len(regs) != 1:
+        raise AssertionError(f"mimc_sponge_kernel: {len(regs)} entries in "
+                             "the ptxas report")
+    return regs[0], resident_warps(regs[0])
+
+
+def check_mimc(dev, ops, results):
+    """Phase 2, mimc_sponge[fr] (multi_hash_mont on CUDA tensors): at 2^17
+    pairs bit for bit against the native engine, its plain version
+    (mimc.multi_hash_mont_plain, the reference's loop over the plain
+    product and add; timed, wall) and mimc_loop (a mont_mul[fr] and an
+    add[fr] launch a step); at 2^17 four-wide rows against the engine; on
+    ragged launches of 1, 22, 33 and 1,025 lanes of four inputs under a key
+    a lane and under one broadcast key against the plain version. Timed:
+    device ms at both widths beside the bound (the Fr products over the
+    multiply rate) and one lane's latency bound (its chain of dependent
+    products on one warp), wall ms, one lane, and mimc_loop's device and
+    wall ms; the kernel's registers and waves at 2^17 lanes."""
+    import torch
+    from zkrollup_torch.fields import limbs as L
+    from zkrollup_torch.fields.mont import FR
+    from zkrollup_torch.hash import mimc
+
+    enc = lambda vals, w: L.to_device(FR.to_mont_host(vals), dev).reshape(
+        -1, w, L.N_LIMBS)
+    pairs = enc(ops["vals"], 2)
+    rows = enc([v for r in ops["rows"] for v in r], 4)
+    got = mimc.multi_hash_mont(pairs)
+    if (FR.from_mont_host(got) != ops["want_level"]
+            or FR.from_mont_host(mimc.multi_hash_mont(rows))
+            != ops["want_rows"]):
+        raise AssertionError("mimc_sponge[fr] differs from the native "
+                             "engine")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = mimc.multi_hash_mont_plain(pairs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if max_abs_err([got], [want]) or max_abs_err([mimc_loop(pairs)],
+                                                 [want]):
+        raise AssertionError("mimc_sponge[fr] or mimc_loop differs from "
+                             "the plain version at 2^17 pairs")
+    x4 = rows[:max(ADD_SUB_RAGGED)]
+    keys = enc(ops["vals"][:x4.shape[0]], 1)[:, 0]
+    for k in (keys, keys[3]):
+        want_k = mimc.multi_hash_mont_plain(x4, k)
+        for m in ADD_SUB_RAGGED:
+            km = k if k.dim() == 1 else k[:m]
+            if max_abs_err([mimc.multi_hash_mont(x4[:m], km)], [want_k[:m]]):
+                raise AssertionError(f"mimc_sponge[fr] differs from its "
+                                     f"plain version on {m} lanes")
+    regs, warps = mimc_kernel_registers()
+    shapes = {}
+    for label, x in (("pairs", pairs), ("rows", rows)):
+        n, n_in = x.shape[0], x.shape[1]
+        products = n * n_in * MIMC_PRODUCTS_PER_INPUT
+        bnd = bound(products, (n_in + 1) * VALUE_BYTES * n)
+        shapes[label] = {
+            "lanes": n, "n_in": n_in, "products": products,
+            "ms": cuda_ms(lambda: mimc.multi_hash_mont(x), 10),
+            "wall_ms": wall_ms(lambda: mimc.multi_hash_mont(x)),
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "latency_bound_ms": chain_ms(n_in * MIMC_PRODUCTS_PER_INPUT),
+            "waves": n / (132 * warps * 32)}
+    one = pairs[:1]
+    top = shapes["pairs"]
+    res = {"max_abs_err": 0, "lanes": top["lanes"], "ms": top["ms"],
+           "plain_ms": plain_ms, "bound_ms": top["bound_ms"],
+           "bound_by": top["bound_by"], "library_ms": None, "shapes": shapes,
+           "registers": regs, "wall_ms": top["wall_ms"],
+           "one_lane_ms": cuda_ms(lambda: mimc.multi_hash_mont(one), 10),
+           "loop_ms": cuda_ms(lambda: mimc_loop(pairs), 2),
+           "loop_wall_ms": wall_ms(lambda: mimc_loop(pairs), 3)}
+    results["mimc_sponge[fr]"] = res
+    log(f"  mimc_sponge[fr] {top['lanes']} pairs: equal to the native "
+        f"engine, the plain version and mimc_loop bit for bit; "
+        f"{shapes['rows']['lanes']} four-wide rows: equal to the engine; "
+        f"ragged {ADD_SUB_RAGGED} lanes of four under a key a lane and a "
+        f"broadcast key: equal to the plain version; {regs} registers, "
+        f"{warps} warps an SM")
+    for label, r in shapes.items():
+        log(f"  mimc_sponge[fr] {r['lanes']} lanes of {r['n_in']} inputs "
+            f"({r['products']} Fr products): kernel {r['ms']:.4f} ms, wall "
+            f"{r['wall_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), one lane's latency bound "
+            f"{r['latency_bound_ms']:.4f} ms, {r['waves']:.3f} waves")
+    log(f"  mimc_sponge[fr] one lane {res['one_lane_ms']:.4f} ms; plain "
+        f"{plain_ms:.1f} ms at {top['lanes']} pairs; mimc_loop "
+        f"{res['loop_ms']:.4f} ms device, {res['loop_wall_ms']:.4f} ms wall")
+
+
 def check_kernels(dev, results):
     """Phase 2: each kernel against its plain version on the card."""
     import torch
@@ -857,6 +1107,7 @@ def check_kernels(dev, results):
 
     check_fields(dev, rand_fe, record, results)
     check_inv(dev, rand_fe, results)
+    check_add_sub(dev, rand_fe, results)
 
     # curve kernels over 2^16 lanes of real points
     n = 1 << 16
@@ -1497,12 +1748,14 @@ def setup_phase(dev, launches):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
-    t0 = time.time()
-    pk = prover.ensure_keys()
-    torch.cuda.synchronize()
-    card_s = time.time() - t0
+    with cuda_normalize_calls() as norm:
+        t0 = time.time()
+        pk = prover.ensure_keys()
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base_mem
     count_path(launches, "setup")
+    check_no_normalize("the setup", norm[0])
     t0 = time.time()
     host = setup_host(r1cs, seed=SETUP_SEED)
     host_s = time.time() - t0
@@ -1558,20 +1811,23 @@ def setup_parts(dev, r1cs, pk):
     for cached in (fb._g1_table_host, fb._g2_table_host, fb._g1_table,
                    fb._g2_table):
         cached.cache_clear()
-    sc = part("scalar derivation", lambda: _toxic_scalars(r1cs, SETUP_SEED))
-    part("window tables, host build", lambda: (fb._g1_table_host(),
-                                                fb._g2_table_host()))
-    part("window tables, to the card", lambda: (fb._g1_table(str(dev)),
-                                                 fb._g2_table(str(dev))))
-    limbs = part("scalars, ints_to_limbs", lambda: [
-        L.ints_to_limbs([x % FR_MOD for x in sc[k]])
-        for k in ("all_g1", "b_t")])
-    s1, s2 = part("scalars, to the card",
-                  lambda: [L.to_device(a, dev) for a in limbs])
-    jac1 = part("G1 fixed-base loop", lambda: fb.fixed_base_g1(s1))
-    aff1 = part("G1 normalisation", lambda: fb.g1_normalize_packed(jac1))
-    jac2 = part("G2 fixed-base loop", lambda: fb.fixed_base_g2(s2))
-    aff2 = part("G2 normalisation", lambda: fb.g2_normalize_packed(jac2))
+    with cuda_normalize_calls() as calls:
+        sc = part("scalar derivation",
+                  lambda: _toxic_scalars(r1cs, SETUP_SEED))
+        part("window tables, host build", lambda: (fb._g1_table_host(),
+                                                    fb._g2_table_host()))
+        part("window tables, to the card", lambda: (fb._g1_table(str(dev)),
+                                                     fb._g2_table(str(dev))))
+        limbs = part("scalars, ints_to_limbs", lambda: [
+            L.ints_to_limbs([x % FR_MOD for x in sc[k]])
+            for k in ("all_g1", "b_t")])
+        s1, s2 = part("scalars, to the card",
+                      lambda: [L.to_device(a, dev) for a in limbs])
+        jac1 = part("G1 fixed-base loop", lambda: fb.fixed_base_g1(s1))
+        aff1 = part("G1 normalisation", lambda: fb.g1_normalize_packed(jac1))
+        jac2 = part("G2 fixed-base loop", lambda: fb.fixed_base_g2(s2))
+        aff2 = part("G2 normalisation", lambda: fb.g2_normalize_packed(jac2))
+    check_no_normalize("the setup's parts on the card", calls[0])
 
     def to_host():
         (x, y, inf), ((x0, x1), (y0, y1), inf2) = aff1, aff2
@@ -1591,6 +1847,23 @@ def setup_parts(dev, r1cs, pk):
     bad = same_key(key, pk)
     if bad:
         raise AssertionError(f"the key made in parts differs: {bad}")
+
+    # the G2 normalisation's adds and subs on their kernels and on the
+    # carry loop, in turns, each giving the same affine planes
+    secs = {"kernels": [], "carry loop": []}
+    for route in ("kernels", "carry loop", "carry loop", "kernels"):
+        with (carry_loop_route() if route == "carry loop"
+              else contextlib.nullcontext()):
+            again = part("again", lambda: fb.g2_normalize_packed(jac2))
+        secs[route].append(parts["again"])
+        if max_abs_err([*again[0], *again[1], again[2]],
+                       [*aff2[0], *aff2[1], aff2[2]]):
+            raise AssertionError(f"the G2 normalisation differs with the "
+                                 f"adds on the {route}")
+    log("  G2 normalisation seconds, FieldCtx.add / sub on the add and sub "
+        "kernels " + " ".join(f"{t:.4f}" for t in secs["kernels"])
+        + ", on the carry loop " + " ".join(
+            f"{t:.4f}" for t in secs["carry loop"]))
 
 
 def proof_bytes(proof) -> bytes:
@@ -1652,6 +1925,14 @@ def cuda_normalize_calls():
         yield calls
     finally:
         limbs.normalize = orig
+
+
+def check_no_normalize(what: str, calls: int) -> None:
+    """limbs.normalize never ran on a CUDA tensor during `what`."""
+    log(f"  limbs.normalize on CUDA tensors during {what}: {calls}")
+    if calls:
+        raise AssertionError(f"limbs.normalize ran {calls} times on CUDA "
+                             f"tensors during {what}")
 
 
 def main_path(dev, prover, launches):
@@ -1990,23 +2271,28 @@ def msm_phase(dev, pk, witness, launches):
 
     times = {}
     kernels.reset_launches()
-    for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
-        times[f"msm_{name}_scan"] = timed(
-            f"msm({name.upper()}, c=12, distinct=False, tree='scan')", name,
-            lambda: msm(curve, tbl, sc, c=12, distinct=False))
+    with cuda_normalize_calls() as norm:
+        for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
+            times[f"msm_{name}_scan"] = timed(
+                f"msm({name.upper()}, c=12, distinct=False, tree='scan')",
+                name, lambda: msm(curve, tbl, sc, c=12, distinct=False))
     count_path(launches, "msm")
+    check_no_normalize("the msm path", norm[0])
 
     kernels.reset_launches()
-    for tree in ("scan1", "affine", "jacobian"):
-        for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
-            times[f"msm_{name}_{tree}"] = timed(
-                f"msm({name.upper()}, c=12, tree={tree!r})", name,
-                lambda: msm(curve, tbl, sc, c=12, tree=tree))
-    for tree in ("scan", "jacobian"):
-        times[f"msm_glv_{tree}"] = timed(
-            f"msm_glv(a_g1, c=12, tree={tree!r})", "g1",
-            lambda: msm_glv(a_tbl, sc, c=12, tree=tree))
+    with cuda_normalize_calls() as norm:
+        for tree in ("scan1", "affine", "jacobian"):
+            for name, curve, tbl in (("g1", g1.G1, a_tbl),
+                                     ("g2", g2.G2, b_tbl)):
+                times[f"msm_{name}_{tree}"] = timed(
+                    f"msm({name.upper()}, c=12, tree={tree!r})", name,
+                    lambda: msm(curve, tbl, sc, c=12, tree=tree))
+        for tree in ("scan", "jacobian"):
+            times[f"msm_glv_{tree}"] = timed(
+                f"msm_glv(a_g1, c=12, tree={tree!r})", "g1",
+                lambda: msm_glv(a_tbl, sc, c=12, tree=tree))
     count_path(launches, "msm_trees")
+    check_no_normalize("the msm_trees path", norm[0])
 
     # the Horner's two routes on these tables: on one set of window sums,
     # the kernel's limbs against the one-lane route's; then msm() (window
@@ -2033,23 +2319,27 @@ def msm_phase(dev, pk, witness, launches):
 
     # the affine strategy's batched inversions: one inv[fq] / inv[fq2]
     # launch a tree level against the route before the kernel (the product
-    # tree, its root by inv_loop), in turns, each equal to the native engine
+    # tree, its root by inv_loop); and its adds and subs on their kernels
+    # against the carry loop (carry_loop_route); in turns, each equal to
+    # the native engine
+    routes = {"kernel": ("inversion and adds by kernel",
+                         contextlib.nullcontext),
+              "loop": ("inversion by product tree and inv_loop",
+                       inv_loop_route),
+              "carry": ("adds on the carry loop", carry_loop_route)}
     for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
         def affine(route):
-            if route == "kernel":
+            with routes[route][1]():
                 return msm(curve, tbl, sc, c=12, tree="affine")
-            with inv_loop_route():
-                return msm(curve, tbl, sc, c=12, tree="affine")
-        secs = {r: [] for r in ("kernel", "loop")}
-        for r in ("kernel", "loop", "loop", "kernel") * 2:
+        secs = {r: [] for r in routes}
+        for r in ("kernel", "loop", "carry", "carry", "loop", "kernel"):
             secs[r].append(timed(f"msm({name.upper()}, tree='affine'), "
-                                 f"inversion by {r}", name,
+                                 f"{routes[r][0]}", name,
                                  lambda: affine(r)))
         times[f"msm_{name}_affine_routes"] = secs
-        log(f"  msm({name.upper()}, tree='affine') seconds, inversion kernel "
-            + " ".join(f"{t:.4f}" for t in secs["kernel"])
-            + ", product tree and inv_loop "
-            + " ".join(f"{t:.4f}" for t in secs["loop"]))
+        log(f"  msm({name.upper()}, tree='affine') seconds, " + "; ".join(
+            f"{routes[r][0]} " + " ".join(f"{t:.4f}" for t in secs[r])
+            for r in routes))
     return times
 
 
@@ -2571,19 +2861,20 @@ def engine_levels(leaves, depth: int, zeros: dict) -> list:
     return levels + [nodes]
 
 
-def mimc_phase(dev, launches):
+def mimc_phase(dev, ops, launches):
     """Phase 10, the "mimc" path: hash/mimc.py and tree/bulk.py on the card,
-    every product on mont_mul[fr]. Counted from 0: merkle_level_up over
-    MIMC_PAIRS pairs, bit for bit against the native engine; from_leaves
-    over a depth-MIMC_DEPTH tree at its capacity, whose root and caches
-    equal the engine's levels; multi_hash_rows over MIMC_ROWS four-wide
-    rows against the engine; verify_integrity on a store holding that
-    tree, True, then False once a leaf hash is corrupted. Then the level
+    one mimc_sponge[fr] launch a level or a batch. Counted from 0:
+    merkle_level_up over MIMC_PAIRS pairs, bit for bit against the native
+    engine; from_leaves over a depth-MIMC_DEPTH tree at its capacity, whose
+    root and caches equal the engine's levels; multi_hash_rows over
+    MIMC_ROWS four-wide rows against the engine; verify_integrity on a
+    store holding that tree, True, then False once a leaf hash is
+    corrupted; limbs.normalize never on a CUDA tensor. Then the level
     timed (host clock and CUDA events; hashes/s beside the engine's
-    one-core rate on MIMC_ENGINE_SUB pairs), profiled (the device's busy
-    time by kernel name) and its limbs.normalize calls on CUDA tensors
-    counted."""
-    import numpy as np
+    one-core rate on MIMC_ENGINE_SUB pairs) in turns with mimc_loop on the
+    add and sub kernels and on the carry loop (carry_loop_route: the route
+    before both kernels), and profiled (the device's busy time by kernel
+    name; limbs.normalize never)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from zkrollup_torch import kernels
@@ -2595,35 +2886,41 @@ def mimc_phase(dev, launches):
     from zkrollup_torch.tree.merkle import MerkleTree
     from zkrollup_torch.tree.store import TreeStore
 
-    rng = np.random.RandomState(SEED + 10)
-    rand = lambda n: [int.from_bytes(rng.bytes(32), "little") % FR.p
-                      for _ in range(n)]
-    vals = rand(2 * MIMC_PAIRS)
-    pairs = [vals[i:i + 2] for i in range(0, len(vals), 2)]
-    t0 = time.time()
-    want_level = engine_rows(pairs)
-    log(f"  the engine's {MIMC_PAIRS} pair hashes on {ENGINE_THREADS} "
-        f"threads: {time.time() - t0:.3f} s")
-    leaves = rand((1 << (MIMC_DEPTH - 1)) - 1)
-    flat = rand(4 * MIMC_ROWS)
-    rows = [flat[i:i + 4] for i in range(0, len(flat), 4)]
-    want_rows = engine_rows(rows)
+    pairs, want_level = ops["pairs"], ops["want_level"]
+    leaves, rows, want_rows = ops["leaves"], ops["rows"], ops["want_rows"]
     zeros = MerkleTree(MIMC_DEPTH).zeros
     levels = engine_levels(leaves, MIMC_DEPTH, zeros)
-    nodes = L.to_device(FR.to_mont_host(vals), dev)
+    nodes = L.to_device(FR.to_mont_host(ops["vals"]), dev)
     torch.cuda.synchronize()
 
     kernels.reset_launches()
-    t0 = time.time()
-    got_level = FR.from_mont_host(mimc.merkle_level_up(nodes))
-    level_s = time.time() - t0
+    with cuda_normalize_calls() as norm:
+        t0 = time.time()
+        got_level = FR.from_mont_host(mimc.merkle_level_up(nodes))
+        level_s = time.time() - t0
+        t0 = time.time()
+        tree = bulk.from_leaves(leaves, MIMC_DEPTH, device=dev)
+        tree_s = time.time() - t0
+        t0 = time.time()
+        got_rows = bulk.multi_hash_rows(rows, device=dev)
+        rows_s = time.time() - t0
+        store = TreeStore()
+        try:
+            store.save_all_leaves("balanceTree", tree)
+            t0 = time.time()
+            intact = store.verify_integrity("balanceTree", device=dev)
+            verify_s = time.time() - t0
+            store.conn.execute("UPDATE leaves SET hash='12345' WHERE idx=3")
+            store.conn.commit()
+            corrupted = store.verify_integrity("balanceTree", device=dev)
+        finally:
+            store.close()
+        torch.cuda.synchronize()
+    count_path(launches, "mimc")
     if got_level != want_level:
         raise AssertionError("merkle_level_up differs from the engine")
     log(f"  merkle_level_up, {MIMC_PAIRS} pairs: equal to the engine's "
         f"mimc_multi_hash_many bit for bit ({level_s:.3f} s, first call)")
-    t0 = time.time()
-    tree = bulk.from_leaves(leaves, MIMC_DEPTH, device=dev)
-    tree_s = time.time() - t0
     n = len(leaves)
     want_paths = {i: dict(enumerate(lv)) for i, lv in enumerate(
         levels[:MIMC_DEPTH])}
@@ -2636,32 +2933,37 @@ def mimc_phase(dev, launches):
         f"root and caches equal the engine's levels ({tree_s:.3f} s, "
         f"{sum(len(lv) >= 2 * bulk.MIN_BATCH_LEAVES for lv in levels[:-1])}"
         f" levels batched on {dev})")
-    t0 = time.time()
-    got_rows = bulk.multi_hash_rows(rows, device=dev)
-    rows_s = time.time() - t0
     if got_rows != want_rows:
         raise AssertionError("multi_hash_rows differs from the engine")
     log(f"  multi_hash_rows, {MIMC_ROWS} four-wide rows: equal to the "
         f"engine ({rows_s:.3f} s)")
-    store = TreeStore()
-    try:
-        store.save_all_leaves("balanceTree", tree)
-        t0 = time.time()
-        intact = store.verify_integrity("balanceTree", device=dev)
-        verify_s = time.time() - t0
-        store.conn.execute("UPDATE leaves SET hash='12345' WHERE idx=3")
-        store.conn.commit()
-        corrupted = store.verify_integrity("balanceTree", device=dev)
-    finally:
-        store.close()
     log(f"  verify_integrity on a store of that tree: {intact} "
         f"({verify_s:.3f} s), after one leaf hash is corrupted: "
         f"{corrupted}")
     if (intact, corrupted) != (True, False):
         raise AssertionError(f"verify_integrity gave {intact}, {corrupted}")
-    torch.cuda.synchronize()
-    count_path(launches, "mimc")
+    check_no_normalize("the mimc path", norm[0])
 
+    # the level through the kernel, through mimc_loop on the add and sub
+    # kernels and on the carry loop, in turns, each equal to the engine
+    x = nodes.reshape(-1, 2, L.N_LIMBS)
+    routes = {"kernel": ("mimc_sponge[fr]",
+                         lambda: mimc.merkle_level_up(nodes)),
+              "loop": ("mimc_loop on mont_mul[fr] and add[fr]",
+                       lambda: mimc_loop(x)),
+              "carry": ("mimc_loop with FR.add on the carry loop",
+                        lambda: mimc_loop(x))}
+    secs = {r: [] for r in routes}
+    for r in ("kernel", "loop", "carry", "carry", "loop", "kernel"):
+        with (carry_loop_route() if r == "carry"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = routes[r][1]()
+            torch.cuda.synchronize()
+            secs[r].append(time.perf_counter() - t0)
+        if FR.from_mont_host(out) != want_level:
+            raise AssertionError(f"{routes[r][0]} differs from the engine")
     wall = wall_ms(lambda: mimc.merkle_level_up(nodes), 3) / 1e3
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -2683,18 +2985,21 @@ def mimc_phase(dev, launches):
     t0 = time.time()
     engine.mimc_multi_hash_many(sub)
     engine_rate = len(sub) / (time.time() - t0)
+    log(f"  merkle_level_up, {MIMC_PAIRS} pairs, seconds in turns, each "
+        "equal to the engine: " + "; ".join(
+            f"{routes[r][0]} " + " ".join(f"{t:.4f}" for t in secs[r])
+            for r in routes))
     log(f"  merkle_level_up, {MIMC_PAIRS} pairs on {dev}: {wall:.4f} s "
         f"wall (median of 3), {events_s:.4f} s between CUDA events, "
         f"{MIMC_PAIRS / wall:,.0f} hashes/s; the native engine on one core "
         f"{engine_rate:,.0f} hashes/s ({MIMC_ENGINE_SUB} pairs); "
         f"{smi_line()}")
     log(f"  one level under torch.profiler: wall {prof_wall:.4f} s, device "
-        f"busy {busy_s:.4f} s ({busy_s / prof_wall:.3f} of the wall); "
-        f"limbs.normalize on CUDA tensors {calls[0]} times")
+        f"busy {busy_s:.4f} s ({busy_s / prof_wall:.3f} of the wall)")
+    check_no_normalize("the profiled level", calls[0])
     if not by_name:
         log("  the profiler recorded no device time: not measured")
-    for t, count, key in by_name[:8] + [r for r in by_name[8:]
-                                         if "mont_mul" in r[2]]:
+    for t, count, key in by_name[:8]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
 
 
@@ -2810,9 +3115,8 @@ def dist_phase(dev, prover, prep, want_bytes, launches):
             + ", ".join(f"{t:.3f}" for t in secs) + " s wall (the key's"
             " padded tables were placed on the card before the first)")
     log(f"  prove(device=) on one card: "
-        + ", ".join(f"{t:.3f}" for t in one) + " s wall; "
-        f"limbs.normalize on CUDA tensors during the four mesh proofs: "
-        f"{proof_norm}")
+        + ", ".join(f"{t:.3f}" for t in one) + " s wall")
+    check_no_normalize("the four mesh proofs", proof_norm)
 
     if max_abs_err([dm.unblock(fwd)], [want_ntt]):
         raise AssertionError("the sharded NTT differs from ntt.transform")
@@ -2836,7 +3140,27 @@ def dist_phase(dev, prover, prep, want_bytes, launches):
         log(f"  sharded_msm_{name} over the key's {t} table "
             f"({tbl['pad_to']} rows, {d} shards): {secs:.3f} s wall, "
             "equal to the native engine's")
-    log(f"  limbs.normalize on CUDA tensors on the dist path: {norm[0]}")
+    check_no_normalize("the dist path", norm[0])
+
+    # the steady mesh proof with FieldCtx.add / sub on their kernels and
+    # on the carry loop, in turns, each giving phase 4's bytes
+    secs = {"kernels": [], "carry loop": []}
+    for route in ("kernels", "carry loop", "carry loop", "kernels"):
+        with (carry_loop_route() if route == "carry loop"
+              else contextlib.nullcontext()):
+            proof, t = wall(lambda: P.prove(
+                pk, r1cs, prep.witness, r=r0, s=s0, mesh=mesh,
+                table_groups=1, c=prover.c))
+        secs[route].append(t)
+        if proof_bytes(proof) != want_bytes:
+            raise AssertionError(f"the mesh proof with the adds on the "
+                                 f"{route} differs from phase 4's")
+    log("  prove(mesh=, table_groups=1) seconds, FieldCtx.add / sub on the "
+        "add and sub kernels " + " ".join(f"{t:.3f}" for t in
+                                          secs["kernels"])
+        + ", on the carry loop " + " ".join(f"{t:.3f}" for t in
+                                            secs["carry loop"])
+        + "; each equal to phase 4's bytes")
 
     t0 = time.time()
     res = subprocess.run(
@@ -2852,13 +3176,30 @@ def dist_phase(dev, prover, prep, want_bytes, launches):
 
 
 def launch_table(launches, paths):
-    log(f"  {'kernel':14s} " + " ".join(f"{p:>19s}" for p in paths))
+    log(f"  {'kernel':15s} " + " ".join(f"{p:>19s}" for p in paths))
     for k in KERNELS:
         cells = []
         for p in paths:
             count, lanes, _ = launches[p][k]
             cells.append(f"{count:7d} x {lanes / max(1, count):9.1f}")
-        log(f"  {k:14s} " + " ".join(cells))
+        log(f"  {k:15s} " + " ".join(cells))
+
+
+def log_add_sub_widths(launches) -> None:
+    """The add and sub kernels' launches on each path, their lanes and
+    widest launch, with the bound at that width (3 values of 32 B a lane
+    over the memory rate)."""
+    for k in KERNELS:
+        if not k.startswith(("add[", "sub[")):
+            continue
+        for p in PATHS:
+            count, lanes, widths = launches[p][k]
+            if count:
+                w = max(widths)
+                log(f"  {k} on {p}: {count} launches, {lanes} lanes, widest "
+                    f"{w} lanes (bound there "
+                    f"{bound(0, 3 * VALUE_BYTES * w)[0]:.4f} ms), "
+                    f"{widths[w]} launches at it")
 
 
 def check_paths(launches, paths):
@@ -3308,6 +3649,8 @@ def main() -> int:
     results = {}
     check_kernels(dev, results)
     check_alu(dev, results)
+    mimc_ops = mimc_operands()
+    check_mimc(dev, mimc_ops, results)
 
     launches = {}
     log("phase 3: setup on the card, BatchProcessTx(2, 6)")
@@ -3347,7 +3690,7 @@ def main() -> int:
     check_paths(launches, LOOP_PATHS)
 
     log("phase 10: the bulk MiMC tree on the card")
-    mimc_phase(dev, launches)
+    mimc_phase(dev, mimc_ops, launches)
     launch_table(launches, MIMC_PATHS)
     check_paths(launches, MIMC_PATHS)
 
@@ -3355,6 +3698,7 @@ def main() -> int:
     dist_phase(dev, prover, prep, want_bytes, launches)
     launch_table(launches, DIST_PATHS)
     check_paths(launches, DIST_PATHS)
+    log_add_sub_widths(launches)
     unlaunched = [k for k in KERNELS
                   if not any(launches[p][k][0] for p in PATHS)]
     if unlaunched:

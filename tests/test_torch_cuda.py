@@ -10,7 +10,9 @@ tools/profile_alu.py too); the NTT, the quotient, the MSM window sums and the ge
 the card against the same functions on the CPU, one Horner launch and no
 double a msm() call; the
 bucket strategies and the GLV MSM against the native engine; the G2
-point-kernel check; a small setup on the card against the native engine's;
+point-kernel check; the field add and sub kernels and the MiMC sponge
+kernel against their plain versions on ragged launches, with broadcast
+operands and keys; a small setup on the card against the native engine's;
 TxProver.prove_batch against prove_prepared; the BatchProcessTx(2,6)
 proof against the native engine; and the operator loop: a withdraw proof
 against the native engine's, the pipelined batch daemon settling on the
@@ -833,6 +835,77 @@ def test_g1_add_nd_ragged_matches_plain(cuda_device):
         got, want = (curve.leaves(f(curve, *sub))
                      for f in (cuda_curve.add_nd, cuda_curve.add_nd_plain))
         assert all(torch.equal(a, b) for a, b in zip(got, want)), (m, off)
+
+
+def _add_sub_operands(F, n, seed, device):
+    """(a, b) of n canonical values, 0, 1, p - 1, a + b = p and a < b in
+    the first rows."""
+    a, b = _values(F.p, n, seed), _values(F.p, n, seed + 1)
+    x, top = a[-1], F.p - 1
+    edges = [(0, 0), (top, 1), (1, top), (top, top), (x, F.p - x), (1, 2)]
+    for i, (u, v) in enumerate(edges[:n]):
+        a[i], b[i] = u, v
+    return _limbs(a, device), _limbs(b, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "sub"])
+@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
+def test_add_sub_kernels_match_plain(cuda_device, F, op, monkeypatch):
+    """add[fr|fq] and sub[fr|fq] (FieldCtx.add / sub on CUDA tensors): one
+    launch each, bit for bit against add_plain / sub_plain on ragged
+    launches of 1, 22, 33 and 1,025 lanes, with either operand one
+    broadcast row, on a strided view and through the broadcasts of
+    (5, 1, 16) and (1, 8, 16); limbs.normalize never runs."""
+    from zkrollup_torch import kernels
+    plain = getattr(cuda_mont, f"{op}_plain")
+    wrapper = getattr(F, op)
+    a, b = _add_sub_operands(F, 1025, 31, cuda_device)
+    cases = [(a[:n], b[:n]) for n in (1, 22, 33, 1025)]
+    cases += [(a, b[3]), (a[2], b), (a[:1024:2], b[1::2]),
+              (a[:5].reshape(5, 1, 16), b[:8].reshape(1, 8, 16))]
+    wants = [plain(F, x, y) for x, y in cases]
+    orig = cuda_mont.L.normalize
+
+    def no_cuda_normalize(t):
+        assert t.device.type != "cuda", "limbs.normalize on a CUDA tensor"
+        return orig(t)
+
+    monkeypatch.setattr(cuda_mont.L, "normalize", no_cuda_normalize)
+    for (x, y), want in zip(cases, wants):
+        kernels.reset_launches()
+        got = wrapper(x, y)
+        assert kernels.LAUNCHES[f"{op}[{F.name}]"] == 1
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in", [2, 4])
+def test_mimc_sponge_kernel_matches_plain(cuda_device, n_in):
+    """mimc_sponge[fr] (multi_hash_mont on CUDA tensors): one launch, bit
+    for bit against multi_hash_mont_plain on ragged launches of 1, 22, 33
+    and 1,025 lanes, without a key, under one broadcast key and under a
+    key a lane; and against the host sponge (ref.mimc) on a few lanes."""
+    from zkrollup_torch import kernels
+    from zkrollup_torch.hash import mimc
+    from zkrollup_torch.ref.mimc import multi_hash
+    n = 1025
+    vals = _values(FR.p, n * n_in, 40 + n_in)
+    vals[:3] = [0, 1, FR.p - 1]
+    x = L.to_device(FR.to_mont_host(vals), cuda_device).reshape(n, n_in, 16)
+    keys = L.to_device(FR.to_mont_host(_values(FR.p, n, 50)), cuda_device)
+    for k in (None, keys[7], keys):
+        want = mimc.multi_hash_mont_plain(x, k)
+        for m in (1, 22, 33, n):
+            kernels.reset_launches()
+            km = k if k is None or k.dim() == 1 else k[:m]
+            got = mimc.multi_hash_mont(x[:m], km)
+            assert kernels.LAUNCHES["mimc_sponge[fr]"] == 1
+            assert kernels.LAUNCHES["mont_mul[fr]"] == 0
+            assert torch.equal(got, want[:m]), (m, k is None)
+    got = FR.from_mont_host(mimc.multi_hash_mont(x[:4]))
+    assert got == [multi_hash(vals[i * n_in:(i + 1) * n_in])
+                   for i in range(4)]
 
 
 def _affine(curve, jac):

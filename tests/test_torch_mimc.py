@@ -5,9 +5,17 @@ rebuild, leaf-row hashing and the tree store's integrity check.
 
 Inputs are made with numpy from a seed and handed to both packages; results
 must be equal limb for limb, and equal to the port's pure-Python
-ref.mimc. The port runs on CPU tensors, where FR.mont_mul takes the plain
-version of the mont_mul[fr] kernel (chip_smoke.py phase 10 runs the kernel
-route on the card).
+ref.mimc. The port runs on CPU tensors, where multi_hash_mont takes the
+plain version of the mimc_sponge[fr] kernel (the reference's loop over the
+plain product and add; chip_smoke.py phase 10 runs the kernel on the
+card).
+
+A word-level model of csrc/mimc.cu's mimc_sponge_kernel (each input
+absorbed with Fp::add, the 220 rounds of Fp::add and Fp::mul on 8 x 32-bit
+words, the swap back after the last; test_torch_field_add.py's model of
+field.cuh) is held against the reference's multi_hash_mont and ref.mimc on
+a few lanes, and, in place of the launch, behind the port's wrapper: its
+inputs, keys and round constants read at their addresses.
 """
 
 import numpy as np
@@ -21,6 +29,8 @@ from zkrollup.hash import mimc_jax
 from zkrollup.tree import bulk as jbulk
 from zkrollup.tree.merkle import create_merkle_tree as jcreate
 from zkrollup.tree.store import TreeStore as JTreeStore
+import test_torch_field_add as words
+from zkrollup_torch import kernels
 from zkrollup_torch.fields import limbs as L
 from zkrollup_torch.fields.mont import FR
 from zkrollup_torch.hash import mimc
@@ -173,3 +183,79 @@ def test_constants_mont_cached_per_device():
     np.testing.assert_array_equal(cts.numpy().astype(np.uint32),
                                   mimc_jax.constants_mont())
     assert JFR.p == FR.p
+
+
+# -- the kernel, modelled word by word ----------------------------------------
+
+def sponge_model(rows: list, k: list, cts: list) -> list:
+    """mimc_sponge_kernel on one lane: rows, the lane's inputs as 8-word
+    values; k its key; cts the round constants. Montgomery form in and
+    out."""
+    p, inv = words.field_words(FR)
+    xl = xr = [0] * 8
+    for x in rows:
+        xl = words.add_words(xl, x, p)
+        for c in cts:
+            t = words.add_words(words.add_words(xl, k, p), c, p)
+            t2 = words.mul_words(t, t, p, inv)
+            t4 = words.mul_words(t2, t2, p, inv)
+            xl, xr = words.add_words(xr, words.mul_words(t4, t, p, inv),
+                                     p), xl
+        xl, xr = xr, xl                  # the swap back
+    return xl
+
+
+def _cts_words() -> list:
+    return [words.load(row) for row in mimc.constants_mont("cpu").numpy()]
+
+
+@pytest.mark.parametrize("n_in,keyed", [(2, False), (2, True), (4, False),
+                                        (4, True)])
+def test_sponge_model_matches_reference(n_in, keyed):
+    """The model on 2 lanes of 2 and 4 inputs, key zero or random per
+    lane: the reference's multi_hash_mont limbs and ref.mimc's ints."""
+    n = 2
+    vals = _ints(n * n_in, 40 + n_in)
+    keys = _ints(n + 3, 50)[3:] if keyed else [0] * n
+    port, ref = _both(vals, (n, n_in))
+    want = np.asarray(mimc_jax.multi_hash_mont(
+        ref, _both(keys, (n,))[1] if keyed else None))
+    enc, kenc = port.numpy(), FR.to_mont_host(keys)
+    cts = _cts_words()
+    got = np.array([words.store(sponge_model(
+        [words.load(x) for x in enc[i]], words.load(kenc[i]), cts))
+        for i in range(n)])
+    np.testing.assert_array_equal(got.astype(np.uint32), want)
+    assert FR.from_mont_host(got) == [
+        multi_hash_py(vals[i * n_in:(i + 1) * n_in], keys[i])
+        for i in range(n)]
+
+
+@pytest.mark.parametrize("key", ["none", "row", "lanes"])
+def test_sponge_wrapper_launch_model_matches_plain(monkeypatch, key):
+    """mimc.mimc_sponge's one launch with the kernel replaced by the model
+    over CPU memory (lane i's n_in rows at in + i n_in rows, its key at
+    row 0 or row i, or zero without one, the constants' 220 rows): equal
+    to multi_hash_mont_plain on 2 lanes of strided inputs."""
+    seen = []
+
+    def launch(name, device, x, n_in, k, k_bcast, cts, out, n, lanes):
+        rows = words.rows_at(x, n * n_in).reshape(n, n_in, 16)
+        keys = (np.zeros((n, 16), np.int32) if not k else
+                np.repeat(words.rows_at(k, 1), n, 0) if k_bcast else
+                words.rows_at(k, n))
+        cw = [words.load(c) for c in words.rows_at(cts, 220)]
+        words.rows_at(out, n)[:] = [words.store(sponge_model(
+            [words.load(r) for r in rows[i]], words.load(keys[i]), cw))
+            for i in range(n)]
+        seen.append((name, n_in, k_bcast, n, lanes))
+
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(kernels, "check_cuda", words.check_cuda_but_device)
+    port, _ = _both(_ints(8, 60), (2, 4))
+    x = port[:, ::2]                                  # (2, 2, 16), strided
+    k = {"none": None, "row": _both([777], (1,))[0][0],
+         "lanes": _both([5, 6], (2,))[0]}[key]
+    got = mimc.mimc_sponge(x, k)
+    assert torch.equal(got, mimc.multi_hash_mont_plain(x, k))
+    assert seen == [("mimc_sponge[fr]", 2, int(key == "row"), 2, 2)]

@@ -7,6 +7,10 @@
 //   inv<Fq>, inv<Fq2>           no Pallas kernel: the Fermat inversion of
 //                               zkrollup/fields/mont.py:159 (mont_pow_const,
 //                               a chain of mont_mul) and fq2.py:51 (inv)
+//   add<Fr|Fq>, sub<Fr|Fq>      no Pallas kernel: FieldCtx.add / sub of
+//                               zkrollup/fields/mont.py:71,76, two 16-step
+//                               lax.scan carry chains inside the traced
+//                               program
 //
 // Storage at every boundary is (n, 16) int32 rows of 16-bit limbs; in
 // registers and shared memory a value is 8 packed 32-bit words.
@@ -58,6 +62,18 @@
 // lanes a thread about 25 products a lane (29 over Fq2) against 64 B (128
 // B) of values read and written; one lane is one thread's chain of 362
 // dependent products, bound by its latency.
+//
+// add / sub: (a + b) mod p and (a - b) mod p, one lane a thread, Fp::add
+// (the sum over 8 words and one trial subtraction of p) and Fp::sub (the
+// difference and p added back under the borrow's mask), branch-free. The
+// reference keeps both inside its traced program; the port's route they
+// replace normalised lazy limbs in a Python loop that read a carry flag
+// back to the host on every pass. Either operand may be one row broadcast
+// over the lanes. Contract: both operands canonical (< p), as the
+// reference's "Caller ensures" (zkrollup/fields/limbs.py:111); a value at
+// or above p gives a wrong result, not an error (the plain versions,
+// cuda_mont.add_plain / sub_plain, take any int64 limbs). Bound by device
+// memory: 3 values of 32 B a lane (the 64-byte rows move twice that).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -91,6 +107,31 @@ mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     const int64_t i = i0 + int64_t(k) * blockDim.x;
     if (i < n) F::mul(x[k], y[k]).store(out + i * 16);
   }
+}
+
+constexpr int ADD_SUB_THREADS = 256;
+
+// a_step, b_step: 16 (a row a lane) or 0 (one broadcast row)
+template <class F>
+__global__ void __launch_bounds__(ADD_SUB_THREADS)
+add_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+           int64_t a_step, int64_t b_step, int32_t* __restrict__ out,
+           int64_t n) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n)
+    F::add(F::load(a + i * a_step), F::load(b + i * b_step))
+        .store(out + i * 16);
+}
+
+template <class F>
+__global__ void __launch_bounds__(ADD_SUB_THREADS)
+sub_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+           int64_t a_step, int64_t b_step, int32_t* __restrict__ out,
+           int64_t n) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n)
+    F::sub(F::load(a + i * a_step), F::load(b + i * b_step))
+        .store(out + i * 16);
 }
 
 constexpr int NTT_TILE_LOG = 10;  // 1024 rows: 32 KB of shared memory
@@ -364,9 +405,40 @@ int launch_mont_mul(const void* a, const void* b, const void* b_idx,
   return int(cudaGetLastError());
 }
 
+template <class F, bool SUB>
+int launch_add_sub(const void* a, const void* b, int a_bcast, int b_bcast,
+                   void* out, int64_t n, void* stream) {
+  if (n <= 0) return int(cudaGetLastError());
+  const unsigned grid = blocks_for(n, ADD_SUB_THREADS);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const int32_t*>(a);
+  const auto* y = static_cast<const int32_t*>(b);
+  auto* o = static_cast<int32_t*>(out);
+  const int64_t sa = a_bcast ? 0 : 16, sb = b_bcast ? 0 : 16;
+  if constexpr (SUB)
+    sub_kernel<F><<<grid, ADD_SUB_THREADS, 0, s>>>(x, y, sa, sb, o, n);
+  else
+    add_kernel<F><<<grid, ADD_SUB_THREADS, 0, s>>>(x, y, sa, sb, o, n);
+  return int(cudaGetLastError());
+}
+
 }  // namespace zkt
 
 extern "C" {
+
+// (a +- b) mod p over n lanes of canonical operands; a_bcast / b_bcast: that
+// operand is one row for every lane.
+#define ZKT_ADD_SUB(NAME, F, SUB)                                            \
+  int NAME(const void* a, const void* b, int a_bcast, int b_bcast,          \
+           void* out, int64_t n, void* stream) {                            \
+    return zkt::launch_add_sub<F, SUB>(a, b, a_bcast, b_bcast, out, n,      \
+                                       stream);                             \
+  }
+ZKT_ADD_SUB(zkt_add_fr, zkt::Fr, false)
+ZKT_ADD_SUB(zkt_sub_fr, zkt::Fr, true)
+ZKT_ADD_SUB(zkt_add_fq, zkt::Fq, false)
+ZKT_ADD_SUB(zkt_sub_fq, zkt::Fq, true)
+#undef ZKT_ADD_SUB
 
 int zkt_mont_mul_fr(const void* a, const void* b, const void* b_idx,
                     int b_bcast, void* out, int64_t n, void* stream) {

@@ -7,7 +7,8 @@ field elements, Z == 0 encodes infinity. `add`, `add_nd`, `add_z01`,
 cuda_curve.py, which run the plain PyTorch formulas on CPU tensors. The
 field ops `mul` and `sqr` below serve those plain formulas: their product
 is the plain PyTorch Montgomery multiply on every device, so a plain point
-op launches no kernel. `kmul` and `ksqr` take the mont_mul kernel wrapper
+op launches no product kernel (its adds and subs are FieldCtx.add / sub:
+the add and sub kernels on CUDA tensors). `kmul` and `ksqr` take the mont_mul kernel wrapper
 instead, and `inv` the inversion kernel's (inv[fq], inv[fq2]); they serve
 the batched affine add of the MSM's affine merge tree (`batch_inverse`,
 `affine_add_batch`).

@@ -38,7 +38,7 @@ their results do not depend on whether shards share a device.
         kernel) with the middle twiddle w_n^(j1 k2) (and 1/n for the
         inverse) as the transform's post table, then the D-point transform
         across shards: the rows all-gathered, multiplied by w_D^(j1 k1)
-        (mont_mul[fr]) and summed on FR.add.
+        (mont_mul[fr]) and summed on FR.add (add[fr]).
 """
 
 from __future__ import annotations

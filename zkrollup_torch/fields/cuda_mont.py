@@ -1,10 +1,11 @@
-"""Montgomery multiply, NTT passes, the lazy-sum fold and the Fq and Fq2
-inversion: CUDA kernel wrappers + plain versions.
+"""Montgomery multiply, NTT passes, the lazy-sum fold, the Fq and Fq2
+inversion and the field add and sub: CUDA kernel wrappers + plain versions.
 
 Counterpart of zkrollup/fields/pallas_mont.py, and of the Fermat inversion
-of zkrollup/fields/mont.py and fq2.py (no Pallas kernel). The kernels are
-csrc/fields.cu (mont_mul_kernel<Fr|Fq>, ntt_pass_kernel, fold_fr_kernel,
-inv_kernel<Fq|Fq2>), built and launched through zkrollup_torch.kernels. A
+and the carry chains of add and sub of zkrollup/fields/mont.py and fq2.py
+(no Pallas kernel). The kernels are csrc/fields.cu (mont_mul_kernel<Fr|Fq>,
+ntt_pass_kernel, fold_fr_kernel, inv_kernel<Fq|Fq2>, add_kernel<Fr|Fq>,
+sub_kernel<Fr|Fq>), built and launched through zkrollup_torch.kernels. A
 wrapper runs its plain PyTorch version when its tensors lie on the CPU,
 and launches its kernel (or raises) when they lie on a CUDA device.
 """
@@ -21,6 +22,24 @@ from .limbs import N_LIMBS, MASK, LIMB_BITS
 
 
 # -- plain versions ------------------------------------------------------------
+
+def add_plain(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p: normalise a + b and a + b - p together and keep the
+    difference unless it borrowed. Any int64 limbs whose value a + b lies
+    in [0, 2p); on canonical operands the add kernel's result."""
+    s = a.to(torch.int64) + b.to(torch.int64)
+    both, carry = L.normalize(torch.stack([s, s - field.mod_limbs(s.device)]))
+    return L.select((carry[1] < 0)[..., None], both[0], both[1]).to(L.DTYPE)
+
+
+def sub_plain(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p: normalise a - b and a - b + p together and keep the
+    sum where the difference borrowed. Any int64 limbs whose value a - b
+    lies in [-p, p); on canonical operands the sub kernel's result."""
+    d = a.to(torch.int64) - b.to(torch.int64)
+    both, carry = L.normalize(torch.stack([d, d + field.mod_limbs(d.device)]))
+    return L.select((carry[0] < 0)[..., None], both[1], both[0]).to(L.DTYPE)
+
 
 def mont_mul_plain(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """CIOS over 16-bit limbs in int64 (pallas_mont.py:_make_kernel): per
@@ -62,14 +81,14 @@ def fold_plain(field, sums: torch.Tensor) -> torch.Tensor:
     hi = torch.cat([ext[:, N_LIMBS:],
                     torch.zeros((n, N_LIMBS - 2), dtype=torch.int64,
                                 device=dev)], 1).to(L.DTYPE)
-    return field.add(mont_mul_plain(field, lo, field.one_mont(dev)),
+    return add_plain(field, mont_mul_plain(field, lo, field.one_mont(dev)),
                      mont_mul_plain(field, hi, field.r2_limbs(dev)))
 
 
 def butterfly_plain(field, u, b, t):
     """(u + b*t, u - b*t) mod p over rows of (n, 16) limbs."""
     v = mont_mul_plain(field, b, t)
-    return field.add(u, v), field.sub(u, v)
+    return add_plain(field, u, v), sub_plain(field, u, v)
 
 
 def ntt_stage_plain_(field, x: torch.Tensor, tw: torch.Tensor, m: int) -> None:
@@ -95,7 +114,7 @@ def ntt_pass_plain(field, x: torch.Tensor, tw: torch.Tensor, s0: int,
     y = x.reshape(-1, n, N_LIMBS)
     if pointwise is not None:
         b, c, z = pointwise
-        y = mont_mul_plain(field, field.sub(mont_mul_plain(
+        y = mont_mul_plain(field, sub_plain(field, mont_mul_plain(
             field, y, b.reshape(y.shape)), c.reshape(y.shape)), z)
     if pre is not None:
         y = mont_mul_plain(field, y, pre)
@@ -129,8 +148,9 @@ def inv_fq2_plain(field, a):
     inv): one Fermat inversion of the norm, every product plain."""
     mul = functools.partial(mont_mul_plain, field)
     a0, a1 = a
-    ninv = inv_plain(field, field.add(mul(a0, a0), mul(a1, a1)))
-    return (mul(a0, ninv), field.sub(torch.zeros_like(a1), mul(a1, ninv)))
+    ninv = inv_plain(field, add_plain(field, mul(a0, a0), mul(a1, a1)))
+    return (mul(a0, ninv), sub_plain(field, torch.zeros_like(a1),
+                                     mul(a1, ninv)))
 
 
 # -- wrappers -------------------------------------------------------------------
@@ -173,6 +193,47 @@ def mont_mul(field, a: torch.Tensor, b: torch.Tensor,
                    b.data_ptr(), 0 if idx is None else idx.data_ptr(), bcast,
                    out.data_ptr(), n, lanes=n)
     return out
+
+
+def _add_sub(op: str, field, a: torch.Tensor, b: torch.Tensor):
+    """Launch add[fr|fq] or sub[fr|fq] over a and b, broadcast against each
+    other: an operand of one (16,) element is read as one row for every
+    lane, any other is expanded to the result's shape. Operands are made
+    int32 and contiguous (views such as x[0::2] are copied); their values
+    must be canonical (< p)."""
+    if a.device != b.device:
+        raise ValueError(f"{op}: operands on different devices")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+
+    def operand(t, what):
+        bcast = int(t.numel() == N_LIMBS)
+        t = (t if bcast else t.expand(shape)).to(L.DTYPE).contiguous()
+        kernels.check_cuda(t, f"{op} {what}")
+        return t, bcast
+
+    (a, a_bcast), (b, b_bcast) = operand(a, "a"), operand(b, "b")
+    out = torch.empty(shape, dtype=L.DTYPE, device=a.device)
+    n = out.numel() // N_LIMBS
+    kernels.launch(f"{op}[{field.name}]", a.device, a.data_ptr(),
+                   b.data_ptr(), a_bcast, b_bcast, out.data_ptr(), n,
+                   lanes=n)
+    return out
+
+
+def add(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p of canonical limbs (..., 16), int32 out. On CUDA one
+    add[fr|fq] launch, no read-back; on the CPU add_plain."""
+    if _on_cpu(a, b):
+        return add_plain(field, a, b)
+    return _add_sub("add", field, a, b)
+
+
+def sub(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p of canonical limbs (..., 16), int32 out. On CUDA one
+    sub[fr|fq] launch, no read-back; on the CPU sub_plain."""
+    if _on_cpu(a, b):
+        return sub_plain(field, a, b)
+    return _add_sub("sub", field, a, b)
 
 
 def inv(field, a: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Counterpart of zkrollup/fields/mont.py: R = 2^256, values are (..., 16)
 limb tensors in Montgomery form. Every op takes int32 or int64 limb
-tensors on one device and returns int32. `mont_mul` and `mont_inv` go
-through the CUDA kernel wrappers in cuda_mont.py (their plain PyTorch
-versions on CPU tensors), and so does neg, a product by -1; add and sub
-are plain tensor code on every device.
+tensors on one device and returns int32. `mont_mul`, `mont_inv`, `add`
+and `sub` go through the CUDA kernel wrappers in cuda_mont.py (their
+plain PyTorch versions on CPU tensors), and so does neg, a product by -1.
+The add and sub kernels take canonical operands (< p) only, as the
+reference's carry chains do; their plain versions are broader.
 """
 
 from __future__ import annotations
@@ -74,22 +75,14 @@ class FieldCtx:
     # -- batched ops ---------------------------------------------------------
 
     def add(self, a, b):
-        """(a + b) mod p: normalise a + b and a + b - p together and keep
-        the difference unless it borrowed."""
-        s = a.to(torch.int64) + b.to(torch.int64)
-        both, carry = L.normalize(
-            torch.stack([s, s - self.mod_limbs(s.device)]))
-        return L.select((carry[1] < 0)[..., None], both[0],
-                        both[1]).to(L.DTYPE)
+        """(a + b) mod p of canonical limbs: on CUDA one add[fr|fq]
+        launch with no read-back; on the CPU its plain version."""
+        return cuda_mont.add(self, a, b)
 
     def sub(self, a, b):
-        """(a - b) mod p: normalise a - b and a - b + p together and keep
-        the sum where the difference borrowed."""
-        d = a.to(torch.int64) - b.to(torch.int64)
-        both, carry = L.normalize(
-            torch.stack([d, d + self.mod_limbs(d.device)]))
-        return L.select((carry[0] < 0)[..., None], both[1],
-                        both[0]).to(L.DTYPE)
+        """(a - b) mod p of canonical limbs: on CUDA one sub[fr|fq]
+        launch with no read-back; on the CPU its plain version."""
+        return cuda_mont.sub(self, a, b)
 
     def neg(self, a):
         """(-a) mod p as one Montgomery product by -1 in Montgomery form,

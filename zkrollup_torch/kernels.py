@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/).
 
-Each source unit of csrc/ (fields.cu, g1.cu, g2.cu, alu.cu) is compiled by
-its own nvcc for sm_90a into a shared library with a plain C interface,
-bound with ctypes. The first launch builds all four at once, in parallel,
+Each source unit of csrc/ (fields.cu, g1.cu, g2.cu, mimc.cu, alu.cu) is
+compiled by its own nvcc for sm_90a into a shared library with a plain C
+interface, bound with ctypes. The first launch builds all five at once, in
+parallel,
 into build/kernels/ at the repository root, keyed by a hash of the
 sources, so an edited source rebuilds and an unchanged one loads in
 milliseconds.
@@ -11,7 +12,8 @@ Every launch goes through `launch`, which passes PyTorch's current stream,
 raises on a non-zero cudaGetLastError(), adds one to the kernel's count in
 LAUNCHES, its lanes (the launch's work items) to its sum in LANES and one
 to the count of that width in WIDTHS. The wrappers that call it live beside their plain PyTorch versions
-(fields/cuda_mont.py, curve/cuda_curve.py, tools/profile_alu.py).
+(fields/cuda_mont.py, curve/cuda_curve.py, hash/mimc.py,
+tools/profile_alu.py).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # source unit -> its .cu file; every unit includes some of the headers
 UNITS = {"fields": "fields.cu", "g1": "g1.cu", "g2": "g2.cu",
-         "alu": "alu.cu"}
+         "mimc": "mimc.cu", "alu": "alu.cu"}
 _HEADERS = ("capi.cuh", "field.cuh", "fq2_pair.cuh", "fq_call.cuh",
             "curve.cuh", "points.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "..", "build", "kernels")
@@ -41,6 +43,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _POINT = [_P, _P, _I64, _P]
 _ALU = [_P, _P, _P, _I64, ctypes.c_int, _P]
+_ADD_SUB = [_P, _P, ctypes.c_int, ctypes.c_int, _P, _I64, _P]
 # kernel name -> (source unit, C symbol, argtypes)
 _SIGS = {
     "mont_mul[fr]": ("fields", "zkt_mont_mul_fr",
@@ -53,6 +56,11 @@ _SIGS = {
     "fold[fr]": ("fields", "zkt_fold_fr", [_P, _P, _P, _P, _I64, _P]),
     "inv[fq]": ("fields", "zkt_inv_fq", [_P, _P, _I64, _P]),
     "inv[fq2]": ("fields", "zkt_inv_fq2", [_P, _P, _P, _P, _I64, _P]),
+    **{f"{op}[{f}]": ("fields", f"zkt_{op}_{f}", _ADD_SUB)
+       for op in ("add", "sub") for f in ("fr", "fq")},
+    "mimc_sponge[fr]": ("mimc", "zkt_mimc_sponge_fr",
+                        [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _I64,
+                         _P]),
     **{f"{g}_{k}": (g, f"zkt_{g}_{k}", _POINT) for g in ("g1", "g2")
        for k in ("add", "madd_nd", "double", "madd", "add_nd", "add_z01")},
     **{f"{g}_horner": (g, f"zkt_{g}_horner", [_P, _P, _I64, ctypes.c_int,

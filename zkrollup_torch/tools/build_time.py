@@ -1,5 +1,5 @@
 """Seconds to build the CUDA kernels as one nvcc over a single unit that
-includes the four sources of csrc/, with the flags of kernels.NVCC_FLAGS,
+includes every source of csrc/, with the flags of kernels.NVCC_FLAGS,
 into a fresh directory under build/. kernels.build, which the first launch
 calls, starts one nvcc per source instead, all together; chip_smoke.py's
 phase 1 prints that build's seconds.

@@ -5,8 +5,8 @@ hashes one leaf path at a time through host MiMC, which suits single
 deposits and updates (the reference's only mode, merkletree.ts:125-227).
 Bulk flows (rebuilding an operator mirror from stored leaves, checking a
 TreeStore snapshot, post-batch rebuilds) hash whole levels at once
-instead: one hash/mimc.py level of 2^k pairs on `device` (the mont_mul[fr]
-kernel on CUDA) in place of 2^k scalar sponge loops.
+instead: one hash/mimc.py level of 2^k pairs on `device` (one
+mimc_sponge[fr] launch on CUDA) in place of 2^k scalar sponge loops.
 
 `from_leaves` reproduces the exact object state `insert_` would have built
 (the zeros, filledSubtrees and filledPaths caches included), as
