@@ -93,7 +93,10 @@ Phases; any failure raises and the script exits non-zero:
      bytes), then three proofs at random (r, s), each self-verified (the
      steady proofs/s, with no stage syncs), two prove(timings=) calls for
      the stage seconds, one steady proof under torch.profiler (device busy
-     share, device time by kernel name, peak memory) and evals_quotient's
+     share, device time by kernel name and by stage label, each kernel
+     attributed by correlation id to the label open at its launch; the
+     four labels in the reference's order, each kernel of LABEL_KERNELS
+     that launched under its label; peak memory) and evals_quotient's
      parts on the host clock, and two proofs with g2_backend="host" (the
      G2 MSM on the native engine beside the card's G1 work; the same
      bytes); then one more proof at the pinned (r, s) whose G1 add
@@ -123,10 +126,21 @@ Phases; any failure raises and the script exits non-zero:
      the point-kernel check
      of every G2 kernel against zkrollup_torch.ref; then (the "curve" path)
      JacobianCurve.add_nd and double over G1, the methods that reach
-     g1_add_nd and g1_double, against zkrollup_torch.ref
+     g1_add_nd and g1_double, against zkrollup_torch.ref; then (the
+     "measure" path) the measurement tools once each at the reference's
+     sizes, every result held: trace_prove (the (2,6) demo batch, its
+     device time by label), prove_breakdown (the stages' proof equal to
+     prove()'s), profile_msm and profile_msm2 (2^17 tiled and distinct
+     points, the four prove-shaped tables) and msm_sweep (c 11-13 x chunk
+     64-256) against the native engine, profile_kernels (2^20) against
+     the plain versions; and mesh_prove_check on the withdraw circuit
+     over a virtual mesh of four in a process of its own, which must
+     print MESH WITHDRAW OK. After phases 4-7 and 9 a profiler check
+     counts the device events of one aten op and one ctypes launch
   8. the launch count and the lanes of every kernel on each path (setup,
      the first proof, the MSMs, the strategies, the GLV proof, the tools,
-     the G1 add_nd), each counted from 0 just before its path; each kernel
+     the G1 add_nd, the measurement tools), each counted from 0 just
+     before its path; each kernel
      of a path must launch on it; on prove ntt_pass and mont_mul[fr] at most
      six times, fold[fr] eight times, mont_mul[fq] at most five times,
      limbs.normalize on CUDA tensors never; on the msm paths one Horner a
@@ -278,6 +292,13 @@ PATHS = {
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
               "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi",
               "alu_mad_lo", "alu_mad_hi"),
+    # phase 7: the measurement tools in this process (trace_prove and
+    # prove_breakdown prove; profile_msm's msm() over tiled points takes
+    # the mixed add and the Horner kernel; profile_msm2's distinct points
+    # come from the fixed base, normalised by one inversion)
+    "measure": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
+                "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add", "g1_madd",
+                "g1_horner", "inv[fq]"),
     "curve": ("g1_add_nd", "g1_double"),
     # phase 9: the operator loop's proofs (demo-rollup, the daemon, the
     # HTTP service) with phase 3's key; the withdraw circuit's setup and
@@ -456,7 +477,28 @@ MSM_LIMITS = {
                   "g1_double": (0, 0), "g2_double": (0, 0),
                   "mont_mul[fq]": (1, 243), "inv[fq]": (1, 17),
                   "inv[fq2]": (1, 17)},
+    # profile_msm's four msm() calls (a first and three steady) one Horner
+    # each; every other MSM of the tools combines on the host
+    "measure": {"g1_horner": (4, 4), "g2_horner": (0, 0),
+                "g1_double": (0, 0), "g2_double": (0, 0)},
 }
+# phase 4: the kernels each stage label of prove() launches, by kernel
+# symbol; the profiled proof fails unless each that launched during it is
+# attributed to its label
+LABEL_KERNELS = {
+    "groth16.spmv_abc": {"mont_mul[fr]": "mont_mul_kernel",
+                         "fold[fr]": "fold_fr_kernel"},
+    "groth16.quotient": {"ntt_pass": "ntt_pass_kernel"},
+    "groth16.msm_g1": {"g1_madd_nd": "g1_madd_nd_kernel",
+                       "g1_add": "g1_add_kernel"},
+    "groth16.msm_g2": {"g2_madd_nd": "jac_madd_nd_pair_kernel",
+                       "g2_add": "jac_add_pair_kernel"},
+}
+# phase 7: the tools at the reference's sizes; msm_sweep's grid
+MEASURE_MSM_LOG = 17
+MEASURE_KERNELS_LOG = 20
+SWEEP = tuple((c, k) for c in (11, 12, 13) for k in (64, 128, 256))
+MESH_CIRCUIT, MESH_DEVICES = "withdraw", 4
 
 
 def bound(products: float, nbytes: float):
@@ -2031,10 +2073,16 @@ def main_path(dev, prover, launches):
 def device_time(prof):
     """(the device's busy seconds: the union of its kernels and copies in a
     torch.profiler trace; [(microseconds, count, name)] by kernel name,
-    largest first)."""
+    largest first). The profiler's device-side spans of record_function
+    ranges (gpu_user_annotation: prove()'s stage labels) are no device
+    work, and the lead-in launches (profiled) no work of the window's:
+    both are left out."""
     import torch
+    from zkrollup_torch.tools.trace_prove import LABELS, LEAD_NAME
     cuda = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in LABELS and LEAD_NAME not in e.name]
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in cuda):
         busy += max(0.0, b - max(a, end))
@@ -2048,42 +2096,45 @@ def device_time(prof):
 
 
 def profile_proof(dev, prover, prep):
-    """Phase 4: one steady proof (prove_prepared) under torch.profiler: the
-    device's busy share (the union of its kernels and copies over the
-    wall time), the device time by kernel name, peak device memory; then
+    """Phase 4: one steady proof (prove_prepared) under torch.profiler,
+    after lead-in launches (profiled): the device's busy share (the union of
+    its kernels and copies over the wall time), the device time by kernel
+    name and by stage label (stage_table), peak device memory; then
     evals_quotient's parts on the host clock, each ended by a device
     synchronize, three times: the witness encoding (ints_to_limbs, the
     copy, to_mont), _abc_evals and the quotient."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from zkrollup_torch import kernels
     from zkrollup_torch.fields import limbs as L
     from zkrollup_torch.fields.mont import FR
     from zkrollup_torch.groth16 import prove as P
     from zkrollup_torch.groth16.qap import to_coo
     from zkrollup_torch.ref.bn254 import R as FR_MOD
+    from zkrollup_torch.tools import trace_prove
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prover.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    before = dict(kernels.LAUNCHES)
+    prof, wall, kept = profiled(dev, lambda: prover.prove_prepared(
+        prep, r=PINNED_RS[0], s=PINNED_RS[1]), trace_prove.LEAD_IN)
     peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: kernels.LAUNCHES[k] - v for k, v in before.items()}
     busy_s, rows = device_time(prof)
     total = sum(t for t, _, _ in rows) / 1e6
     st = prover.stats
-    log(f"  profile of one steady proof (prove_prepared): wall "
+    log(f"  profile of one steady proof (prove_prepared, after "
+        f"{trace_prove.LEAD_IN} lead-in launches, {kept} kept): wall "
         f"{wall:.4f} s (prove {st.prove_s:.4f}, verify {st.verify_s:.4f}); "
         f"device busy {busy_s:.4f} s, share {busy_s / wall:.3f} of the "
         f"wall, {busy_s / st.prove_s:.3f} of prove; device time by name "
         f"{total:.4f} s over {len(rows)} kernel names; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB")
-    if not rows:
-        log("  the profiler recorded no device time: not measured")
+    if not kept:
+        raise AssertionError("the profiler kept no lead-in launch: the "
+                             "proof's first device events may be lost")
     for t, count, key in rows[:16]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    stage_table(prof, wall, launched)
 
     coo = to_coo(prover.structure_r1cs())
     m = coo.m
@@ -2107,6 +2158,38 @@ def profile_proof(dev, prover, prep):
         log(f"  evals_quotient in parts {i + 1}: ints_to_limbs of "
             f"{len(prep.witness)} ints {t_enc:.4f} s, copy and to_mont "
             f"{t_dev:.4f} s, _abc_evals {t_abc:.4f} s, quotient {t_q:.4f} s")
+
+
+def stage_table(prof, wall: float, launched: dict) -> None:
+    """Phase 4: the profiled proof's device time by stage label
+    (trace_prove.by_label: each kernel and copy goes to the label open on
+    the host thread at its launch, matched by correlation id). Fails
+    unless the four labels opened once each, in the reference's order, and
+    each kernel of LABEL_KERNELS that launched during the proof has device
+    time under its label."""
+    import tempfile
+    from zkrollup_torch.tools import trace_prove
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "proof.json")
+        prof.export_chrome_trace(path)
+        events = trace_prove.trace_events(path)
+    order = trace_prove.label_order(events)
+    rows = trace_prove.by_label(events)
+    log("  the same proof by stage label (device time of the kernels and "
+        "copies launched inside each; span: the profiler's own "
+        "gpu_user_annotation, idle gaps included):")
+    for line in trace_prove.table(rows, wall):
+        log("    " + line)
+    if order != list(trace_prove.LABELS):
+        raise AssertionError(f"stage labels of the profiled proof: {order}")
+    for label, kern in LABEL_KERNELS.items():
+        names = rows[label]["names"]
+        for k, sym in kern.items():
+            if launched[k] and not any(sym in n for n in names):
+                raise AssertionError(
+                    f"{label}: {k} launched {launched[k]} times in the "
+                    "profiled proof, no device time attributed to the label")
 
 
 def keep_prove_operands(prover, prep):
@@ -2427,6 +2510,153 @@ def curve_path(dev, launches):
     log(f"  G1.add_nd on {dev} (g1_add_nd), Z = 1 and non-unit Z, and "
         "G1.double (g1_double), non-unit Z and infinity: equal "
         "zkrollup_torch.ref")
+
+
+def measure_phase(dev, prover, launches) -> dict:
+    """Phase 7, the "measure" path: the measurement tools, each once at
+    the reference's sizes, with their results held (each tool raises
+    otherwise): trace_prove on the (2,6) demo batch of the reference's
+    tools (tools/prove_breakdown.py's two sends) with phase 3's key, its
+    labels in order and with device time; prove_breakdown on the same
+    batch, its stages giving prove()'s bytes; profile_msm at 2^17, c = 12
+    against the native engine; profile_msm2 (2^17 distinct points and the
+    prove-shaped four tables) against the engine; msm_sweep over SWEEP at
+    2^17, each equal to the engine; profile_kernels at 2^20 against the
+    plain versions. The tools' distinct points are made anew in a
+    temporary directory. Then mesh_prove_check on MESH_CIRCUIT over a
+    virtual mesh of MESH_DEVICES shards in a process of its own (its
+    launches not counted here), which must print MESH WITHDRAW OK.
+    Returns the headline numbers."""
+    import tempfile
+    from zkrollup_torch import kernels
+    from zkrollup_torch.tools import (common, msm_sweep, profile_kernels,
+                                      profile_msm, profile_msm2,
+                                      prove_breakdown, trace_prove)
+
+    out = {}
+    r1cs = prover.structure_r1cs()
+    with tempfile.TemporaryDirectory() as tmp:
+        build_dir, common.BUILD_DIR = common.BUILD_DIR, tmp
+        try:
+            _, prep = common.demo_batch(dev, prover=prover)
+            kernels.reset_launches()
+            t0 = time.time()
+            tr = trace_prove.run(prover.pk, r1cs, prep.witness,
+                                 prep.public_signals, dev, tmp, "tx")
+            log(f"  trace_prove --circuit tx ({time.time() - t0:.1f} s; "
+                f"the traced proof verified; labels {', '.join(tr['order'])}"
+                f"; Chrome trace {os.path.getsize(tr['trace'])} bytes):")
+            for line in trace_prove.table(tr["rows"], tr["wall_s"]):
+                log("    " + line)
+            if tr["order"] != list(trace_prove.LABELS) or any(
+                    tr["rows"][k]["us"] <= 0 for k in trace_prove.LABELS):
+                raise AssertionError("trace_prove: a stage label is missing "
+                                     "or has no device time")
+            out["trace"] = tr
+            t0 = time.time()
+            bd = prove_breakdown.run(prover.pk, r1cs, prep.witness, dev)
+            log(f"  prove_breakdown ({time.time() - t0:.1f} s; the stages' "
+                "proof equals prove()'s bytes):")
+            for line in prove_breakdown.lines(bd):
+                log("    " + line)
+            out["breakdown"] = bd
+            t0 = time.time()
+            pm = profile_msm.run(dev, MEASURE_MSM_LOG, 12)
+            log(f"  profile_msm 2^{MEASURE_MSM_LOG}, c = {pm['c']}, scan "
+                f"({time.time() - t0:.1f} s; msm() equals the native "
+                "engine):")
+            for line in profile_msm.lines(pm):
+                log("    " + line)
+            out["profile_msm"] = pm
+            t0 = time.time()
+            pm2 = profile_msm2.run(dev, MEASURE_MSM_LOG, 12)
+            log(f"  profile_msm2 2^{MEASURE_MSM_LOG} distinct and the prove "
+                f"shape, c = 12, chunk 128 ({time.time() - t0:.1f} s; both "
+                "equal the native engine):")
+            for line in profile_msm2.lines(pm2):
+                log("    " + line)
+            out["profile_msm2"] = pm2
+            t0 = time.time()
+            want = pm2["results"]["a"]
+            out["sweep"] = []
+            for c, chunk in SWEEP:
+                sw = msm_sweep.run(dev, c, chunk, MEASURE_MSM_LOG, want=want)
+                log("    " + msm_sweep.line(sw))
+                out["sweep"].append(sw)
+            log(f"  msm_sweep: {len(SWEEP)} configurations at "
+                f"2^{MEASURE_MSM_LOG}, each equal to the native engine "
+                f"({time.time() - t0:.1f} s)")
+            t0 = time.time()
+            pk_ = profile_kernels.run(dev, MEASURE_KERNELS_LOG)
+            log(f"  profile_kernels 2^{MEASURE_KERNELS_LOG} "
+                f"({time.time() - t0:.1f} s; every result holds):")
+            for line in profile_kernels.lines(pk_):
+                log("    " + line)
+            out["kernels"] = pk_
+            count_path(launches, "measure")
+        finally:
+            common.BUILD_DIR = build_dir
+
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "zkrollup_torch.tools.mesh_prove_check",
+         "--circuit", MESH_CIRCUIT, "--devices", str(MESH_DEVICES),
+         "--device", str(dev)], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    for line in res.stdout.splitlines():
+        log(f"    {line}")
+    log(f"  mesh_prove_check --circuit {MESH_CIRCUIT} --devices "
+        f"{MESH_DEVICES}: exit code {res.returncode}, "
+        f"{time.time() - t0:.1f} s")
+    if res.returncode or f"MESH {MESH_CIRCUIT.upper()} OK" not in res.stdout:
+        raise AssertionError("mesh_prove_check failed:\n"
+                             + res.stderr[-3000:])
+    return out
+
+
+def profiled(dev, fn, lead: int = 0):
+    """fn() under torch.profiler (CPU and CUDA), the device synchronised
+    inside, after `lead` launches of the spin kernel
+    (trace_prove.lead_in). Returns (profiler, seconds of fn and the
+    synchronise, lead-in launches the profiler kept)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from zkrollup_torch.tools import trace_prove
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace_prove.lead_in(dev, lead)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kept = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and trace_prove.LEAD_NAME in e.name)
+    return prof, wall, kept
+
+
+def profiler_check(dev, when: str) -> None:
+    """How many of a short window's first device events torch.profiler
+    drops at this point of the process: one aten op and one mont_mul[fq]
+    launch (ctypes) profiled as they are, their device events counted,
+    then again after trace_prove.LEAD_IN lead-in launches, of which the
+    kept ones are counted too. Launches made here count on no path: every
+    path counts from a reset after this."""
+    import torch
+    from zkrollup_torch.fields.mont import FQ
+    from zkrollup_torch.tools import trace_prove
+
+    a = torch.ones((1 << 10, 16), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    prof, _, _ = profiled(dev, lambda: FQ.mont_mul(a + 1, a))
+    bare = sum(c for _, c, _ in device_time(prof)[1])
+    prof, _, kept = profiled(dev, lambda: FQ.mont_mul(a + 1, a),
+                             trace_prove.LEAD_IN)
+    led = sum(c for _, c, _ in device_time(prof)[1])
+    log(f"  profiler check {when}: one aten op and one ctypes launch, "
+        f"{bare} of 2 device events recorded; after "
+        f"{trace_prove.LEAD_IN} lead-in launches {led} of 2, the lead-in "
+        f"kept {kept}")
 
 
 # -- phase 9: the operator loop ----------------------------------------------
@@ -2874,13 +3104,14 @@ def mimc_phase(dev, ops, launches):
     one-core rate on MIMC_ENGINE_SUB pairs) in turns with mimc_loop on the
     add and sub kernels and on the carry loop (carry_loop_route: the route
     before both kernels), and profiled (the device's busy time by kernel
-    name; limbs.normalize never)."""
+    name, read after lead-in launches: profiled; limbs.normalize
+    never)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from zkrollup_torch import kernels
     from zkrollup_torch.fields import limbs as L
     from zkrollup_torch.fields.mont import FR
     from zkrollup_torch.hash import mimc
+    from zkrollup_torch.tools import trace_prove
     from zkrollup_torch.native import engine
     from zkrollup_torch.tree import bulk
     from zkrollup_torch.tree.merkle import MerkleTree
@@ -2973,13 +3204,14 @@ def mimc_phase(dev, ops, launches):
     e1.record()
     torch.cuda.synchronize()
     events_s = e0.elapsed_time(e1) / 1e3
+    # as it was read before, and after the lead-in launches: late in a
+    # process the profiler drops the first device events of a session
+    # (trace_prove.LEAD_IN), here the level's one launch
     with cuda_normalize_calls() as calls:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mimc.merkle_level_up(nodes)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
+        prof, _, _ = profiled(dev, lambda: mimc.merkle_level_up(nodes))
+        bare = sum(c for _, c, _ in device_time(prof)[1])
+        prof, prof_wall, kept = profiled(
+            dev, lambda: mimc.merkle_level_up(nodes), trace_prove.LEAD_IN)
     busy_s, by_name = device_time(prof)
     sub = pairs[:MIMC_ENGINE_SUB]
     t0 = time.time()
@@ -2994,11 +3226,16 @@ def mimc_phase(dev, ops, launches):
         f"{MIMC_PAIRS / wall:,.0f} hashes/s; the native engine on one core "
         f"{engine_rate:,.0f} hashes/s ({MIMC_ENGINE_SUB} pairs); "
         f"{smi_line()}")
-    log(f"  one level under torch.profiler: wall {prof_wall:.4f} s, device "
-        f"busy {busy_s:.4f} s ({busy_s / prof_wall:.3f} of the wall)")
+    log(f"  one level under torch.profiler: {bare} device events as it was "
+        f"read before; after {trace_prove.LEAD_IN} lead-in launches (the "
+        f"profiler kept {kept}): wall {prof_wall:.4f} s, device busy "
+        f"{busy_s:.4f} s ({busy_s / prof_wall:.3f} of the wall), "
+        f"{sum(c for _, c, _ in by_name)} device events")
     check_no_normalize("the profiled level", calls[0])
-    if not by_name:
-        log("  the profiler recorded no device time: not measured")
+    if not kept or not any("mimc_sponge_kernel" in key
+                           for _, _, key in by_name):
+        raise AssertionError("the profiled level recorded no sponge kernel "
+                             "after a kept lead-in launch")
     for t, count, key in by_name[:8]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
 
@@ -3659,18 +3896,23 @@ def main() -> int:
     log("phase 4: main path, BatchProcessTx(2, 6)")
     prep, want_bytes = main_path(dev, prover, launches)
     check_prove_operands(*keep_prove_operands(prover, prep), results)
+    profiler_check(dev, "after phase 4")
 
     log("phase 5: the MSMs over the key's tables, four bucket strategies "
         "and GLV")
     msm_phase(dev, prover.pk, prep.witness, launches)
+    profiler_check(dev, "after phase 5")
 
     log("phase 6: the GLV prover with the Jacobian merge tree, "
         "BatchProcessTx(2, 6)")
     glv_phase(dev, prover, prep, want_bytes, launches)
+    profiler_check(dev, "after phase 6")
 
     log("phase 7: tools")
     tools_phase(dev, results, launches)
     curve_path(dev, launches)
+    measure_phase(dev, prover, launches)
+    profiler_check(dev, "after phase 7")
 
     log("phase 8: launches, and lanes per launch, on each path")
     earlier = [p for p in PATHS
@@ -3688,6 +3930,7 @@ def main() -> int:
     log("  launches, and lanes per launch, on the loop's paths")
     launch_table(launches, LOOP_PATHS)
     check_paths(launches, LOOP_PATHS)
+    profiler_check(dev, "after phase 9")
 
     log("phase 10: the bulk MiMC tree on the card")
     mimc_phase(dev, mimc_ops, launches)

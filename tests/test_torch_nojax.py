@@ -73,10 +73,10 @@ def _sources():
 
 
 def test_the_scan_covers_every_source():
-    """The port's subpackages, its tools, operator loop (chain, operator,
-    tree store, CLI), multi-device prover (dist) and formats (interop,
-    solvk, circom_loader, cipher) included, the smoke script and the
-    on-card tests."""
+    """The port's subpackages, its tools (the measurement tools too),
+    operator loop (chain, operator, tree store, CLI), multi-device prover
+    (dist) and formats (interop, solvk, circom_loader, cipher) included,
+    the smoke script and the on-card tests."""
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for want in ("zkrollup_torch/tools/profile_alu.py",
                  "zkrollup_torch/tools/g2_kernel_check.py",
@@ -100,7 +100,15 @@ def test_the_scan_covers_every_source():
                  "zkrollup_torch/groth16/interop.py",
                  "zkrollup_torch/groth16/solvk.py",
                  "zkrollup_torch/r1cs/circom_loader.py",
-                 "zkrollup_torch/ref/cipher.py"):
+                 "zkrollup_torch/ref/cipher.py",
+                 "zkrollup_torch/tools/common.py",
+                 "zkrollup_torch/tools/trace_prove.py",
+                 "zkrollup_torch/tools/prove_breakdown.py",
+                 "zkrollup_torch/tools/profile_msm.py",
+                 "zkrollup_torch/tools/profile_msm2.py",
+                 "zkrollup_torch/tools/msm_sweep.py",
+                 "zkrollup_torch/tools/profile_kernels.py",
+                 "zkrollup_torch/tools/mesh_prove_check.py"):
         assert want in names
 
 

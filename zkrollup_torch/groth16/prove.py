@@ -53,6 +53,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..native import engine
 from ..ref import bn254 as ref
@@ -82,8 +83,9 @@ def _spmv(row, var, coeff_mont, w_mont, m: int) -> torch.Tensor:
 
 
 def _abc_evals(coo_dev, w_mont, m: int):
-    return tuple(_spmv(row, var, coeff, w_mont, m)
-                 for row, var, coeff in coo_dev)
+    with record_function("groth16.spmv_abc"):
+        return tuple(_spmv(row, var, coeff, w_mont, m)
+                     for row, var, coeff in coo_dev)
 
 
 def _quotient_plain(a_e, b_e, c_e, zinv_mont) -> torch.Tensor:
@@ -97,11 +99,13 @@ def _quotient_plain(a_e, b_e, c_e, zinv_mont) -> torch.Tensor:
     reference's intt / coset_ntt / pointwise / coset_intt / from_mont."""
     log_n = ntt._log2(a_e.shape[0])
     tab = lambda kind: ntt._TABLES.get(kind, log_n, a_e.device)
-    abc = torch.stack([a_e, b_e, c_e]).to(L.DTYPE)
-    coeffs = ntt.transform(abc, True, post=tab("ninv_coset"))
-    ev = ntt.transform(coeffs)
-    return ntt.transform(ev[0], True, pointwise=(ev[1], ev[2], zinv_mont),
-                         post=tab("ninv_coset_inv_plain"))
+    with record_function("groth16.quotient"):
+        abc = torch.stack([a_e, b_e, c_e]).to(L.DTYPE)
+        coeffs = ntt.transform(abc, True, post=tab("ninv_coset"))
+        ev = ntt.transform(coeffs)
+        return ntt.transform(ev[0], True,
+                             pointwise=(ev[1], ev[2], zinv_mont),
+                             post=tab("ninv_coset_inv_plain"))
 
 
 def _filt_dedup(x, y, inf, scalar_idx):
@@ -413,8 +417,9 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
     else:
         pack = _device_pack_g1(pk, device)
         sc_cat = _scalars_cat(w_plain, h_plain, pack)
-        wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
-                                          pack["bounds"], distinct=True)
+        with record_function("groth16.msm_g1"):
+            wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
+                                              pack["bounds"], distinct=True)
         wsum1_host = _to_host_standard(G1, wsum1)
     stage("msm_g1")
 
@@ -432,8 +437,10 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
         g2p = _device_pack_g2(pk, device)
         sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]),
                               g2p["seg"], g2p["n_seg"])
-        wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2, c=min(c, 12),
-                                    distinct=True, tree=tree)
+        with record_function("groth16.msm_g2"):
+            wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2,
+                                        c=min(c, 12), distinct=True,
+                                        tree=tree)
         wsum2_host = _to_host_standard(G2, wsum2)
     stage("msm_g2")
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..curve.weierstrass import affine_add_batch
 from ..fields import limbs as L
@@ -512,11 +513,32 @@ def msm(curve, points_affine, scalars, c: int = 12, n_bits: int = 256,
 
 def msm_host_combine(curve, points_affine, scalars, c: int = 12,
                      n_bits: int = 256, distinct: bool = False,
-                     tree: str = "scan"):
+                     tree: str = "scan", chunk: int = CHUNK):
     """The window sums on the scalars' device, the Horner combine on the
     host in Python ints (msm.py:msm_host_combine). G1 only. Returns a
-    Jacobian point with (16,) leaves on the scalars' device, as msm()."""
+    Jacobian point with (16,) leaves on the scalars' device, as msm(). The
+    window sums run under the prover's G1 label, as in the reference."""
     from .glv import combine_window_sums_host
-    wsum, c = window_sums(curve, points_affine, scalars, c, n_bits, distinct,
-                          tree)
+    with record_function("groth16.msm_g1"):
+        wsum, c = window_sums(curve, points_affine, scalars, c, n_bits,
+                              distinct, tree, chunk)
     return combine_window_sums_host(wsum, c)
+
+
+def msm_multi_host_combine(curve, packed, bounds, scalars_cat, c: int = 12,
+                           distinct: bool = True, chunk: int = CHUNK):
+    """One MSM over every table of `packed` (from pack_tables, as tensors)
+    and per-table Horner combines on the host
+    (msm.py:msm_multi_host_combine): multi_window_sums under the prover's
+    G1 label, one copy of the (W, T, 16) window sums to the host, then
+    combine_window_sums_host for each table. G1 only. Returns a list of
+    Jacobian points with (16,) Montgomery leaves on the host, in table
+    order. prove() runs the same steps inline, so that its G2 MSM is
+    enqueued before the host waits for these window sums."""
+    from .glv import combine_window_sums_host
+    with record_function("groth16.msm_g1"):
+        wsum, c = multi_window_sums(curve, packed, scalars_cat, c, bounds,
+                                    distinct, chunk)
+    host = curve.map(lambda a: a.cpu(), wsum)
+    return [combine_window_sums_host(curve.map(lambda a: a[:, t], host), c)
+            for t in range(len(bounds))]
