@@ -2110,31 +2110,28 @@ def profile_proof(dev, prover, prep):
     from zkrollup_torch.groth16 import prove as P
     from zkrollup_torch.groth16.qap import to_coo
     from zkrollup_torch.ref.bn254 import R as FR_MOD
-    from zkrollup_torch.tools import trace_prove
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     before = dict(kernels.LAUNCHES)
-    prof, wall, kept = profiled(dev, lambda: prover.prove_prepared(
-        prep, r=PINNED_RS[0], s=PINNED_RS[1]), trace_prove.LEAD_IN)
+    w = profiled(dev, lambda: prover.prove_prepared(
+        prep, r=PINNED_RS[0], s=PINNED_RS[1]))
+    wall = w["wall_s"]
     peak = torch.cuda.max_memory_allocated(dev)
     launched = {k: kernels.LAUNCHES[k] - v for k, v in before.items()}
-    busy_s, rows = device_time(prof)
+    busy_s, rows = device_time(w["prof"])
     total = sum(t for t, _, _ in rows) / 1e6
     st = prover.stats
-    log(f"  profile of one steady proof (prove_prepared, after "
-        f"{trace_prove.LEAD_IN} lead-in launches, {kept} kept): wall "
+    log(f"  profile of one steady proof (prove_prepared; {lead_note(w)}): "
+        f"wall "
         f"{wall:.4f} s (prove {st.prove_s:.4f}, verify {st.verify_s:.4f}); "
         f"device busy {busy_s:.4f} s, share {busy_s / wall:.3f} of the "
         f"wall, {busy_s / st.prove_s:.3f} of prove; device time by name "
         f"{total:.4f} s over {len(rows)} kernel names; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB")
-    if not kept:
-        raise AssertionError("the profiler kept no lead-in launch: the "
-                             "proof's first device events may be lost")
     for t, count, key in rows[:16]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
-    stage_table(prof, wall, launched)
+    stage_table(w["events"], wall, launched, w["lead"])
 
     coo = to_coo(prover.structure_r1cs())
     m = coo.m
@@ -2160,26 +2157,21 @@ def profile_proof(dev, prover, prep):
             f"{t_dev:.4f} s, _abc_evals {t_abc:.4f} s, quotient {t_q:.4f} s")
 
 
-def stage_table(prof, wall: float, launched: dict) -> None:
+def stage_table(events, wall: float, launched: dict, lead: int) -> None:
     """Phase 4: the profiled proof's device time by stage label
-    (trace_prove.by_label: each kernel and copy goes to the label open on
-    the host thread at its launch, matched by correlation id). Fails
-    unless the four labels opened once each, in the reference's order, and
-    each kernel of LABEL_KERNELS that launched during the proof has device
-    time under its label."""
-    import tempfile
+    (trace_prove.by_label of its trace events: each kernel and copy goes to
+    the label open on the host thread at its launch, matched by correlation
+    id). Fails unless the four labels opened once each, in the reference's
+    order, and each kernel of LABEL_KERNELS that launched during the proof
+    has device time under its label."""
     from zkrollup_torch.tools import trace_prove
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "proof.json")
-        prof.export_chrome_trace(path)
-        events = trace_prove.trace_events(path)
     order = trace_prove.label_order(events)
     rows = trace_prove.by_label(events)
     log("  the same proof by stage label (device time of the kernels and "
         "copies launched inside each; span: the profiler's own "
         "gpu_user_annotation, idle gaps included):")
-    for line in trace_prove.table(rows, wall):
+    for line in trace_prove.table(rows, wall, lead):
         log("    " + line)
     if order != list(trace_prove.LABELS):
         raise AssertionError(f"stage labels of the profiled proof: {order}")
@@ -2546,7 +2538,10 @@ def measure_phase(dev, prover, launches) -> dict:
             log(f"  trace_prove --circuit tx ({time.time() - t0:.1f} s; "
                 f"the traced proof verified; labels {', '.join(tr['order'])}"
                 f"; Chrome trace {os.path.getsize(tr['trace'])} bytes):")
-            for line in trace_prove.table(tr["rows"], tr["wall_s"]):
+            log(f"    kernels lost after the lead-in, by window: "
+                f"{tr['lost']}")
+            for line in trace_prove.table(tr["rows"], tr["wall_s"],
+                                          tr["lead"]):
                 log("    " + line)
             if tr["order"] != list(trace_prove.LABELS) or any(
                     tr["rows"][k]["us"] <= 0 for k in trace_prove.LABELS):
@@ -2614,49 +2609,52 @@ def measure_phase(dev, prover, launches) -> dict:
     return out
 
 
-def profiled(dev, fn, lead: int = 0):
+def profiled(dev, fn, whole: bool = True) -> dict:
     """fn() under torch.profiler (CPU and CUDA), the device synchronised
-    inside, after `lead` launches of the spin kernel
-    (trace_prove.lead_in). Returns (profiler, seconds of fn and the
-    synchronise, lead-in launches the profiler kept)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    inside: trace_prove.whole_window (after a lead-in of spin-kernel
+    launches, made longer until no launch after it lost its kernel) or,
+    with whole=False, one window with no lead-in, as it was read before.
+    Returns whole_window's dict and under "kept" the lead-in launches whose
+    kernel the profiler kept."""
+    import tempfile
     from zkrollup_torch.tools import trace_prove
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trace_prove.lead_in(dev, lead)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kept = sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and trace_prove.LEAD_NAME in e.name)
-    return prof, wall, kept
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "window.json")
+        if whole:
+            w = trace_prove.whole_window(dev, fn, path)
+        else:
+            prof, events, wall, out = trace_prove.window(dev, fn, path)
+            w = {"prof": prof, "events": events, "wall_s": wall, "out": out,
+                 "lead": 0, "lost": []}
+    w["kept"] = sum(1 for e in w["events"] if e.get("cat") == "kernel"
+                    and trace_prove.LEAD_NAME in e["name"])
+    return w
+
+
+def lead_note(w: dict) -> str:
+    """How a profiled() window's lead-in went, for the log."""
+    return (f"{w['lead']} lead-in launches, {w['kept']} kept; kernels lost "
+            f"after the lead-in, by window: {w['lost']}")
 
 
 def profiler_check(dev, when: str) -> None:
     """How many of a short window's first device events torch.profiler
     drops at this point of the process: one aten op and one mont_mul[fq]
     launch (ctypes) profiled as they are, their device events counted,
-    then again after trace_prove.LEAD_IN lead-in launches, of which the
-    kept ones are counted too. Launches made here count on no path: every
-    path counts from a reset after this."""
+    then again in a whole window (profiled). Launches made here count on
+    no path: every path counts from a reset after this."""
     import torch
     from zkrollup_torch.fields.mont import FQ
-    from zkrollup_torch.tools import trace_prove
 
     a = torch.ones((1 << 10, 16), dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
-    prof, _, _ = profiled(dev, lambda: FQ.mont_mul(a + 1, a))
-    bare = sum(c for _, c, _ in device_time(prof)[1])
-    prof, _, kept = profiled(dev, lambda: FQ.mont_mul(a + 1, a),
-                             trace_prove.LEAD_IN)
-    led = sum(c for _, c, _ in device_time(prof)[1])
+    w = profiled(dev, lambda: FQ.mont_mul(a + 1, a), whole=False)
+    bare = sum(c for _, c, _ in device_time(w["prof"])[1])
+    w = profiled(dev, lambda: FQ.mont_mul(a + 1, a))
+    led = sum(c for _, c, _ in device_time(w["prof"])[1])
     log(f"  profiler check {when}: one aten op and one ctypes launch, "
-        f"{bare} of 2 device events recorded; after "
-        f"{trace_prove.LEAD_IN} lead-in launches {led} of 2, the lead-in "
-        f"kept {kept}")
+        f"{bare} of 2 device events recorded; in a whole window {led} of 2 "
+        f"({lead_note(w)})")
 
 
 # -- phase 9: the operator loop ----------------------------------------------
@@ -3104,14 +3102,12 @@ def mimc_phase(dev, ops, launches):
     one-core rate on MIMC_ENGINE_SUB pairs) in turns with mimc_loop on the
     add and sub kernels and on the carry loop (carry_loop_route: the route
     before both kernels), and profiled (the device's busy time by kernel
-    name, read after lead-in launches: profiled; limbs.normalize
-    never)."""
+    name, read in a whole window: profiled; limbs.normalize never)."""
     import torch
     from zkrollup_torch import kernels
     from zkrollup_torch.fields import limbs as L
     from zkrollup_torch.fields.mont import FR
     from zkrollup_torch.hash import mimc
-    from zkrollup_torch.tools import trace_prove
     from zkrollup_torch.native import engine
     from zkrollup_torch.tree import bulk
     from zkrollup_torch.tree.merkle import MerkleTree
@@ -3204,14 +3200,14 @@ def mimc_phase(dev, ops, launches):
     e1.record()
     torch.cuda.synchronize()
     events_s = e0.elapsed_time(e1) / 1e3
-    # as it was read before, and after the lead-in launches: late in a
-    # process the profiler drops the first device events of a session
-    # (trace_prove.LEAD_IN), here the level's one launch
+    # as it was read before, and in a whole window: the profiler may drop
+    # the first device events of a session (trace_prove.whole_window),
+    # here the level's one launch
     with cuda_normalize_calls() as calls:
-        prof, _, _ = profiled(dev, lambda: mimc.merkle_level_up(nodes))
-        bare = sum(c for _, c, _ in device_time(prof)[1])
-        prof, prof_wall, kept = profiled(
-            dev, lambda: mimc.merkle_level_up(nodes), trace_prove.LEAD_IN)
+        w = profiled(dev, lambda: mimc.merkle_level_up(nodes), whole=False)
+        bare = sum(c for _, c, _ in device_time(w["prof"])[1])
+        w = profiled(dev, lambda: mimc.merkle_level_up(nodes))
+    prof, prof_wall = w["prof"], w["wall_s"]
     busy_s, by_name = device_time(prof)
     sub = pairs[:MIMC_ENGINE_SUB]
     t0 = time.time()
@@ -3227,15 +3223,14 @@ def mimc_phase(dev, ops, launches):
         f"{engine_rate:,.0f} hashes/s ({MIMC_ENGINE_SUB} pairs); "
         f"{smi_line()}")
     log(f"  one level under torch.profiler: {bare} device events as it was "
-        f"read before; after {trace_prove.LEAD_IN} lead-in launches (the "
-        f"profiler kept {kept}): wall {prof_wall:.4f} s, device busy "
+        f"read before; in a whole window ({lead_note(w)}): wall "
+        f"{prof_wall:.4f} s, device busy "
         f"{busy_s:.4f} s ({busy_s / prof_wall:.3f} of the wall), "
         f"{sum(c for _, c, _ in by_name)} device events")
     check_no_normalize("the profiled level", calls[0])
-    if not kept or not any("mimc_sponge_kernel" in key
-                           for _, _, key in by_name):
+    if not any("mimc_sponge_kernel" in key for _, _, key in by_name):
         raise AssertionError("the profiled level recorded no sponge kernel "
-                             "after a kept lead-in launch")
+                             "in a whole window")
     for t, count, key in by_name[:8]:
         log(f"    {t / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
 

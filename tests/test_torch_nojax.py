@@ -108,7 +108,8 @@ def test_the_scan_covers_every_source():
                  "zkrollup_torch/tools/profile_msm2.py",
                  "zkrollup_torch/tools/msm_sweep.py",
                  "zkrollup_torch/tools/profile_kernels.py",
-                 "zkrollup_torch/tools/mesh_prove_check.py"):
+                 "zkrollup_torch/tools/mesh_prove_check.py",
+                 "zkrollup_torch/tools/profiler_drops.py"):
         assert want in names
 
 

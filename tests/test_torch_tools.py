@@ -38,8 +38,8 @@ from zkrollup_torch.native import engine
 from zkrollup_torch.ref import bn254 as ref
 from zkrollup_torch.tools import (common, mesh_prove_check, msm_sweep,
                                   profile_kernels, profile_msm,
-                                  profile_msm2, prove_breakdown,
-                                  trace_prove)
+                                  profile_msm2, profiler_drops,
+                                  prove_breakdown, trace_prove)
 
 # One intra-op thread per process: the suite runs in several worker
 # processes, whose torch thread pools would otherwise fight for the cores.
@@ -89,6 +89,8 @@ def test_trace_json_holds_the_labels(traced):
                for k in (*LABELS, trace_prove.UNLABELLED))
     assert any("groth16.msm_g1" in line
                for line in trace_prove.table(rows, traced["wall_s"]))
+    # one window with no lead-in: nothing launched, nothing lost
+    assert (traced["lead"], traced["lost"]) == (0, [0])
 
 
 def test_trace_events_are_the_json_events_it_reads(tmp_path):
@@ -170,6 +172,83 @@ def test_by_label_attributes_launches_by_correlation():
     assert rows["groth16.spmv_abc"]["count"] == 0
     assert rows["_busy_us"] == 5 + 12 + 2 + 3     # the copy overlaps madd
     assert rows["_lead_in"] == 1                  # counted, left out
+
+
+def _window_events(lead: int, dropped: int, work: int = 3):
+    """Trace events of a window on a card: `lead` spin-kernel launches,
+    then `work` kernel launches and a copy; the first `dropped` kernels
+    lost, as the profiler loses them."""
+    events = []
+    for c in range(lead + work):
+        events.append({"ph": "X", "cat": "cuda_runtime",
+                       "name": "cudaLaunchKernel", "ts": c, "dur": 1,
+                       "args": {"correlation": c}})
+        if c >= dropped:
+            name = "spin_kernel" if c < lead else f"work{c}"
+            events.append({"ph": "X", "cat": "kernel", "name": name,
+                           "ts": c + 1, "dur": 1,
+                           "args": {"correlation": c}})
+    events.append({"ph": "X", "cat": "cuda_runtime",
+                   "name": "cudaMemcpyAsync", "ts": 99, "dur": 1,
+                   "args": {"correlation": 99}})
+    return events
+
+
+@pytest.mark.parametrize("lead,dropped,lost", [
+    (64, 0, 0), (64, 63, 0), (64, 64, 0), (64, 65, 1), (64, 70, 3),
+    (0, 0, 0), (0, 2, 2)])
+def test_lost_launches_counts_the_work_kernels_missing(lead, dropped, lost):
+    """Only kernel launches after the lead-in count, each without a kernel
+    of its correlation id; a copy's runtime call is no launch."""
+    assert trace_prove.lost_launches(_window_events(lead, dropped),
+                                     lead) == lost
+
+
+@pytest.mark.parametrize("drops,leads", [
+    ([0], [64]), ([70, 70], [64, 512]), ([70, 600, 600], [64, 512, 4096]),
+    ([10 ** 6] * 4, None)])
+def test_whole_window_lengthens_the_lead_in_until_nothing_is_lost(
+        monkeypatch, drops, leads):
+    """On a card whole_window opens each window with a lead-in LEAD_GROWTH
+    times longer than the last while a work kernel was lost, and raises
+    after ATTEMPTS windows."""
+    made = []
+
+    def window(dev, fn, path, lead):
+        made.append(lead)
+        return None, _window_events(lead, drops[len(made) - 1]), 0.5, fn()
+
+    monkeypatch.setattr(trace_prove, "window", window)
+    card = torch.device("cuda", 0)
+    if leads is None:
+        with pytest.raises(RuntimeError, match="lost kernels"):
+            trace_prove.whole_window(card, lambda: 7, "unused")
+        assert made == [64 * 8 ** i for i in range(trace_prove.ATTEMPTS)]
+        return
+    w = trace_prove.whole_window(card, lambda: 7, "unused")
+    assert made == leads and w["lead"] == leads[-1] and w["out"] == 7
+    assert w["lost"] == [trace_prove.lost_launches(
+        _window_events(n, d), n) for n, d in zip(leads, drops)]
+    assert w["lost"][-1] == 0
+
+
+def test_launch_kept_is_in_launch_order():
+    """One flag a kernel launch, ordered by correlation id whatever the
+    events' order; copies and other runtime calls are no launches."""
+    events = _window_events(2, 1, work=2)[::-1]
+    assert trace_prove.launch_kept(events) == [False, True, True, True]
+
+
+@pytest.mark.parametrize("mode", ["idle", "launch", "sessions"])
+def test_profiler_drops_runs_its_windows_on_the_cpu(mode):
+    """Eight windows, the six after the wait as listed in AFTER; on the
+    CPU no launch, so nothing lost."""
+    rows = profiler_drops.run(torch.device("cpu"), mode, wait=0.01)
+    assert len(rows) == 2 + len(profiler_drops.AFTER)
+    assert all((r["launches"], r["lost"], r["prefix"], r["work"])
+               == (0, 0, True, 0) for r in rows)
+    assert f"after {mode}" in rows[2]["what"]
+    assert rows[4]["what"].endswith("a 20 ms spin first")
 
 
 def _tables(sizes, seed):
@@ -319,7 +398,7 @@ def test_demo_batch_is_the_reference_batch():
 @pytest.mark.parametrize("tool,argv", [
     (trace_prove, []), (prove_breakdown, []), (profile_msm, []),
     (profile_msm2, []), (msm_sweep, ["12", "128"]), (profile_kernels, []),
-    (mesh_prove_check, [])])
+    (mesh_prove_check, []), (profiler_drops, [])])
 def test_entry_points_need_a_card_or_the_cpu(monkeypatch, tool, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -7,4 +7,5 @@ prover's stages one by one (prove_breakdown), the MSM's stages
 (profile_msm), distinct points and the fused four tables (profile_msm2),
 window c by scan chunk (msm_sweep), the MSM's building blocks
 (profile_kernels) and the mesh prover against one device
-(mesh_prove_check); what they share is in common."""
+(mesh_prove_check); the profiler's dropped first device events
+(profiler_drops); what they share is in common."""

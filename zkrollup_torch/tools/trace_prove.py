@@ -23,8 +23,8 @@ launched through ctypes, under no aten op, so they carry no "External
 id" and its event tree gives the label no device time; its
 gpu_user_annotation span of the label (printed as "span") covers them,
 but as a span, idle gaps included. On a card the profiled proof follows
-LEAD_IN launches of a spin kernel, left out of the table: the profiler
-drops the first few device events of a session late in a process.
+a lead-in of spin-kernel launches, left out of the table: the profiler
+may drop the first device events of a session (whole_window).
 """
 
 from __future__ import annotations
@@ -47,13 +47,16 @@ LABELS = ("groth16.spmv_abc", "groth16.quotient", "groth16.msm_g1",
           "groth16.msm_g2")
 UNLABELLED = "(no label)"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# torch.profiler (2.11, on an H100) drops the first k device events of a
-# session, k growing with the time since the process's first session
-# (chip_smoke.py's profiler checks; PERF.md section 7). A profiled window
-# on a card therefore opens with LEAD_IN launches of torch.cuda._sleep's
-# spin kernel, which by_label leaves out and counts: a window that kept
-# none of them may have lost events of its own.
+# torch.profiler (2.11, on an H100) may drop the first device events of a
+# session: always its first ones, in some sessions and not in others, more
+# the longer the process went without a session (tools/profiler_drops.py).
+# A window on a card therefore opens with a lead-in of torch.cuda._sleep's
+# spin kernel, which by_label leaves out and counts; whole_window makes
+# the lead-in LEAD_GROWTH times longer, at most ATTEMPTS times, until no
+# launch after it has lost its kernel.
 LEAD_IN = 64
+LEAD_GROWTH = 8
+ATTEMPTS = 4
 LEAD_NAME = "spin_kernel"
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
@@ -63,6 +66,61 @@ def lead_in(dev, n: int = LEAD_IN) -> None:
     if dev.type == "cuda":
         for _ in range(n):
             torch.cuda._sleep(1)
+
+
+def launch_kept(events) -> list:
+    """For each kernel launch in the trace events, in launch order
+    (correlation id), whether the trace holds its kernel."""
+    kernels = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") == "kernel"}
+    return [c in kernels for c in sorted(
+        e["args"]["correlation"] for e in events
+        if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS
+        and "Launch" in e["name"] and "correlation" in e.get("args", {}))]
+
+
+def lost_launches(events, lead: int) -> int:
+    """Kernel launches of a window, after its first `lead` (the lead-in),
+    whose kernel the trace events lack."""
+    return launch_kept(events)[lead:].count(False)
+
+
+def window(dev, fn, path: str, lead: int = 0):
+    """fn() under torch.profiler (CPU, and CUDA on a card) after `lead`
+    lead-in launches, the device synchronised inside; its Chrome trace
+    written to `path`. Returns (profiler, trace_events(path), seconds of
+    fn and the synchronise, fn's result)."""
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        lead_in(dev, lead)
+        t0 = time.perf_counter()
+        out = fn()
+        common.sync(dev)
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    return prof, trace_events(path), wall, out
+
+
+def whole_window(dev, fn, path: str) -> dict:
+    """window() on a card with a lead-in of LEAD_IN launches, again with
+    one LEAD_GROWTH times longer while a launch after the lead-in lost its
+    kernel; raises after ATTEMPTS windows. On the CPU one window, no
+    lead-in. Returns {"prof", "events", "wall_s", "out", "lead" (lead-in
+    launches of the last window), "lost" (launches after the lead-in that
+    lost their kernel, by window)}."""
+    lead = LEAD_IN if dev.type == "cuda" else 0
+    lost = []
+    while len(lost) < ATTEMPTS:
+        prof, events, wall, out = window(dev, fn, path, lead)
+        lost.append(lost_launches(events, lead))
+        if not lost[-1]:
+            return {"prof": prof, "events": events, "wall_s": wall,
+                    "out": out, "lead": lead, "lost": lost}
+        lead *= LEAD_GROWTH
+    raise RuntimeError(f"the profiler lost kernels after the lead-in in "
+                       f"{ATTEMPTS} windows in a row: {lost}")
 
 
 def by_label(events) -> dict:
@@ -136,12 +194,13 @@ def trace_events(path: str) -> list:
             if m.group(1) in keep]
 
 
-def table(rows: dict, wall_s: float) -> list:
-    """Printable lines of a by_label result."""
+def table(rows: dict, wall_s: float, lead: int = 0) -> list:
+    """Printable lines of a by_label result of a window with `lead`
+    lead-in launches."""
     busy = rows["_busy_us"]
     out = [f"wall {wall_s * 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
            f"({busy / 1e6 / wall_s:.3f} of the wall); lead-in launches "
-           f"kept {rows['_lead_in']} of {LEAD_IN}"]
+           f"kept {rows['_lead_in']} of {lead}"]
     for k, r in rows.items():
         if k.startswith("_"):
             continue
@@ -155,38 +214,26 @@ def table(rows: dict, wall_s: float) -> list:
 
 def run(pk, r1cs, witness, public_signals, device, logdir: str,
         name: str = "prove") -> dict:
-    """One warm proof, then one under torch.profiler on `device`, after
-    LEAD_IN lead-in launches on a card; raises unless the traced proof
-    verifies and, on a card, a lead-in launch was kept. Writes
-    <logdir>/trace_<name>.json and returns {"proof", "wall_s", "rows"
-    (by_label), "order" (label_order), "trace" (its path)}."""
+    """One warm proof, then one under torch.profiler on `device`
+    (whole_window: after a lead-in on a card); raises unless the traced
+    proof verifies. Writes <logdir>/trace_<name>.json and returns
+    {"proof", "wall_s", "rows" (by_label), "order" (label_order), "trace"
+    (its path), "lead" and "lost" (whole_window's)}."""
     from ..groth16.prove import prove
     from ..groth16.verify import verify
 
     dev = common.device(str(device))
     prove(pk, r1cs, witness, r=3, s=5, device=dev)
     common.sync(dev)
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        lead_in(dev)
-        t0 = time.perf_counter()
-        proof = prove(pk, r1cs, witness, r=3, s=5, device=dev)
-        common.sync(dev)
-        wall = time.perf_counter() - t0
-    if not verify(pk.vk, proof, public_signals):
-        raise RuntimeError("the traced proof does not verify")
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, f"trace_{name}.json")
-    prof.export_chrome_trace(path)
-    events = trace_events(path)
-    rows = by_label(events)
-    if dev.type == "cuda" and rows["_lead_in"] == 0:
-        raise RuntimeError("the profiler kept none of the lead-in launches: "
-                           "the proof's first device events may be lost")
-    return {"proof": proof, "wall_s": wall, "rows": rows,
-            "order": label_order(events), "trace": path}
+    w = whole_window(dev, lambda: prove(pk, r1cs, witness, r=3, s=5,
+                                        device=dev), path)
+    if not verify(pk.vk, w["out"], public_signals):
+        raise RuntimeError("the traced proof does not verify")
+    return {"proof": w["out"], "wall_s": w["wall_s"],
+            "rows": by_label(w["events"]), "order": label_order(w["events"]),
+            "trace": path, "lead": w["lead"], "lost": w["lost"]}
 
 
 def circuit(which: str, dev):
@@ -219,8 +266,9 @@ def main(argv=None) -> int:
           f"on {common.device_name(dev)}", flush=True)
     out = run(pk, r1cs, witness, publics, dev, args.logdir, args.circuit)
     print(f"traced proof verified; labels in order: "
-          f"{', '.join(out['order'])}; trace {out['trace']}")
-    for line in table(out["rows"], out["wall_s"]):
+          f"{', '.join(out['order'])}; trace {out['trace']}; kernels "
+          f"lost after the lead-in, by window: {out['lost']}")
+    for line in table(out["rows"], out["wall_s"], out["lead"]):
         print("  " + line)
     return 0
 
