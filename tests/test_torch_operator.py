@@ -4,8 +4,8 @@ public signals, final tree) in the reference's order; prove_prepared asks
 prove for no stage timings; _structure_r1cs is the reference's name of
 structure_r1cs.
 
-groth16.prove is monkeypatched: a BatchProcessTx proof on the CPU's plain
-kernels takes minutes. The card test of prove_batch is in
+groth16.prove is monkeypatched (a stand-in under its span): a
+BatchProcessTx proof on the CPU's plain kernels takes minutes. The card test of prove_batch is in
 test_torch_cuda.py."""
 
 import inspect
@@ -17,6 +17,7 @@ from zkrollup.operator import prover as jprover
 from zkrollup_torch.config import RollupConfig
 from zkrollup_torch.operator import prover as P
 from zkrollup_torch.ref import eddsa
+from zkrollup_torch.spans import span
 from zkrollup_torch.tree.merkle import create_merkle_tree
 from zkrollup_torch.witness.assembler import (Transaction, format_tx,
                                               hash_balance_tree_leaf)
@@ -37,8 +38,9 @@ def patched(monkeypatch):
     calls = []
 
     def prove(pk, r1cs, witness, r=None, s=None, **kw):
-        calls.append(("prove", kw))
-        return ("proof", len(witness), r, s)
+        with span("groth16.prove"):
+            calls.append(("prove", kw))
+            return ("proof", len(witness), r, s)
 
     def verify(vk, proof, signals):
         calls.append(("verify", vk, proof))
@@ -86,14 +88,21 @@ def test_prove_batch_returns_prepared_results_in_reference_order(patched):
 
 
 def test_prove_prepared_passes_no_timings(patched):
+    """No stage timings asked of prove (they synchronise the device); the
+    stats come from the proof's spans."""
     prover, calls = patched
     prep = prover.prepare_batch(*_batch(prover.cfg))
+    prover.structure_r1cs()          # made once, on the first proof
     proof = prover.prove_prepared(prep, r=1, s=2)
     (kw,) = [c[1] for c in calls if c[0] == "prove"]
     assert "timings" not in kw
     assert kw == {"device": "cpu", "c": 12, "glv": False, "tree": "scan"}
     assert ("verify", "vk", proof) in calls
-    assert prover.stats.stages == {}
+    st = prover.stats
+    assert set(st.stages) == {"groth16.prove", "groth16.verify"}
+    assert st.prove_s == st.stages["groth16.prove"] > 0
+    assert st.verify_s == st.stages["groth16.verify"] > 0
+    assert st.witness_s == prep.witness_s > 0
 
 
 def test_prove_prepared_raises_on_a_proof_that_does_not_verify(patched,

@@ -47,6 +47,9 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = trace_prove.LABELS
+# prove()'s spans beside the reference's four stage labels (spans.py)
+HOST_SPANS = ("groth16.prove", "groth16.encode", "groth16.copy_wait",
+              "groth16.combine_g1", "groth16.combine_g2", "groth16.blind")
 
 
 @pytest.fixture(scope="module")
@@ -77,11 +80,14 @@ def test_prove_labels_its_stages_in_the_reference_order(toy, traced):
 
 def test_trace_json_holds_the_labels(traced):
     """The exported Chrome trace, read by trace_events (held against
-    json.load below; the CPU trace of a proof is about a gigabyte)."""
+    json.load below; the CPU trace of a proof is about a gigabyte), holds
+    each label and each of prove()'s host spans once, groth16.copy_wait
+    twice (G1 and G2)."""
     events = trace_prove.trace_events(traced["trace"])
     names = collections.Counter(e["name"] for e in events
                                 if e.get("cat") == "user_annotation")
-    assert names == collections.Counter(LABELS)
+    assert names == collections.Counter(
+        LABELS + HOST_SPANS + ("groth16.copy_wait",))
     rows = traced["rows"]
     # no device on the CPU: every row empty, nothing busy
     assert rows["_busy_us"] == 0
@@ -122,13 +128,15 @@ def _scopes(path, pattern):
 
 @pytest.mark.parametrize("module", ["groth16/prove.py", "msm/msm.py"])
 def test_label_names_and_places_match_the_reference(module):
-    """The record_function labels of each port module are the
+    """The stage labels (spans) of each port module are the
     jax.named_scope strings of its reference module, as many times; the
-    union is trace_prove's LABELS."""
+    union is trace_prove's LABELS; its other spans are prove()'s host
+    spans."""
     want = _scopes(f"zkrollup/{module}", r'jax\.named_scope\("([^"]+)"\)')
-    got = _scopes(f"zkrollup_torch/{module}",
-                  r'record_function\("([^"]+)"\)')
-    assert got == want
+    got = _scopes(f"zkrollup_torch/{module}", r'\bspan\("([^"]+)"\)')
+    assert +collections.Counter({k: n for k, n in got.items()
+                                 if k in LABELS}) == want
+    assert set(got) - set(LABELS) <= set(HOST_SPANS)
     every = set()
     for m in ("groth16/prove.py", "msm/msm.py"):
         every |= set(_scopes(f"zkrollup/{m}",

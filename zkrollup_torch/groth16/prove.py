@@ -40,6 +40,14 @@ on its shard, the shards' window sums folded, then the host combine as
 above; table_groups > 1 deals the tables to disjoint groups of the mesh,
 each on its own CUDA streams. The same bytes again.
 
+Every proof is the span groth16.prove (spans.py); the stages of the
+single-device path are spans under it: groth16.encode (step 1's host
+part), groth16.spmv_abc (2), groth16.quotient (3), groth16.msm_g1 (5),
+groth16.msm_g2 (6), groth16.copy_wait (7: the host waiting for each
+copy), groth16.combine_g1 and groth16.combine_g2 (the Horner combines)
+and groth16.blind. The four device stages keep the reference's
+jax.named_scope names.
+
 prove_host mirrors the reference's host path (zkrollup/groth16/prove.py:
 _prove_host) on the native engine; it is the independent check the device
 proof is held against.
@@ -53,7 +61,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..native import engine
 from ..ref import bn254 as ref
@@ -69,6 +76,7 @@ from ..dist import mesh as dmesh
 from ..msm import msm
 from ..msm.glv import (combine_multi_window_sums_host,
                        combine_window_sums_host_g2, msm_glv)
+from ..spans import span
 from .keys import ProvingKey, Proof
 from .qap import to_coo
 
@@ -83,7 +91,7 @@ def _spmv(row, var, coeff_mont, w_mont, m: int) -> torch.Tensor:
 
 
 def _abc_evals(coo_dev, w_mont, m: int):
-    with record_function("groth16.spmv_abc"):
+    with span("groth16.spmv_abc"):
         return tuple(_spmv(row, var, coeff, w_mont, m)
                      for row, var, coeff in coo_dev)
 
@@ -99,7 +107,7 @@ def _quotient_plain(a_e, b_e, c_e, zinv_mont) -> torch.Tensor:
     reference's intt / coset_ntt / pointwise / coset_intt / from_mont."""
     log_n = ntt._log2(a_e.shape[0])
     tab = lambda kind: ntt._TABLES.get(kind, log_n, a_e.device)
-    with record_function("groth16.quotient"):
+    with span("groth16.quotient"):
         abc = torch.stack([a_e, b_e, c_e]).to(L.DTYPE)
         coeffs = ntt.transform(abc, True, post=tab("ninv_coset"))
         ev = ntt.transform(coeffs)
@@ -220,32 +228,38 @@ def _to_host_standard(curve, wsum):
     every leaf's rows, stacked), then ONE device-to-host copy, on the
     stream without waiting for it on a CUDA device: into pinned host
     memory, with an event recorded behind it. Returns a function that
-    waits for that event alone and gives the point with numpy leaves."""
+    waits for that event alone (the span groth16.copy_wait) and gives the
+    point with numpy leaves."""
     leaves = FQ.from_mont(torch.stack(curve.leaves(wsum)))
-    if leaves.device.type != "cuda":
-        return lambda: curve.from_leaves(list(leaves.numpy()))
-    host = torch.empty(leaves.shape, dtype=leaves.dtype, pin_memory=True)
-    host.copy_(leaves, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(leaves.device))
+    host, done = leaves, None
+    if leaves.device.type == "cuda":
+        host = torch.empty(leaves.shape, dtype=leaves.dtype,
+                           pin_memory=True)
+        host.copy_(leaves, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(leaves.device))
 
     def wait():
-        done.synchronize()
+        with span("groth16.copy_wait"):
+            if done is not None:
+                done.synchronize()
         return curve.from_leaves(list(host.numpy()))
     return wait
 
 
 def _blind_combine(pk: ProvingKey, pi_a_msm, pi_b_msm, pi_b1_msm, pi_c_msm,
                    pi_h_msm, r: int, s: int) -> Proof:
-    """Blinding combine (host single-point ops, prove.py:_blind_combine)."""
+    """Blinding combine (host single-point ops, prove.py:_blind_combine),
+    under the span groth16.blind."""
     g1a, g1m = ref.g1_add, ref.g1_mul
-    pi_a = g1a(g1a(pk.alpha1, pi_a_msm), g1m(pk.delta1, r))
-    pi_b = ref.g2_add(ref.g2_add(pk.beta2, pi_b_msm),
-                      ref.g2_mul(pk.delta2, s))
-    pi_b1 = g1a(g1a(pk.beta1, pi_b1_msm), g1m(pk.delta1, s))
-    pi_c = g1a(g1a(pi_c_msm, pi_h_msm),
-               g1a(g1a(g1m(pi_a, s), g1m(pi_b1, r)),
-                   g1m(pk.delta1, (-r * s) % FR_MOD)))
+    with span("groth16.blind"):
+        pi_a = g1a(g1a(pk.alpha1, pi_a_msm), g1m(pk.delta1, r))
+        pi_b = ref.g2_add(ref.g2_add(pk.beta2, pi_b_msm),
+                          ref.g2_mul(pk.delta2, s))
+        pi_b1 = g1a(g1a(pk.beta1, pi_b1_msm), g1m(pk.delta1, s))
+        pi_c = g1a(g1a(pi_c_msm, pi_h_msm),
+                   g1a(g1a(g1m(pi_a, s), g1m(pi_b1, r)),
+                       g1m(pk.delta1, (-r * s) % FR_MOD)))
     return Proof(a=pi_a, b=pi_b, c=pi_c)
 
 
@@ -362,29 +376,42 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
     table_groups (mesh only: the MSM tables on that many disjoint groups
     of the mesh). If `timings` is a dict, each stage synchronises the
     device and records its seconds (and the G2 MSM then no longer overlaps
-    the host's G1 combine)."""
-    r, s = _check_rs(pk, r1cs, r, s)
-    msm._check_tree(tree)
-    if g2_backend not in G2_BACKENDS:
-        raise ValueError(f"g2_backend={g2_backend!r}: must be one of "
-                         f"{G2_BACKENDS}")
-    if g2_backend == "host" and not engine.available():
-        raise RuntimeError("g2_backend='host' needs the native engine")
-    if (mesh is None) == (device is None):
-        raise ValueError("prove: pass device= or mesh=, one of them")
-    coo = to_coo(r1cs)
+    the host's G1 combine). The whole proof is the span groth16.prove."""
+    with span("groth16.prove"):
+        r, s = _check_rs(pk, r1cs, r, s)
+        msm._check_tree(tree)
+        if g2_backend not in G2_BACKENDS:
+            raise ValueError(f"g2_backend={g2_backend!r}: must be one of "
+                             f"{G2_BACKENDS}")
+        if g2_backend == "host" and not engine.available():
+            raise RuntimeError("g2_backend='host' needs the native engine")
+        if (mesh is None) == (device is None):
+            raise ValueError("prove: pass device= or mesh=, one of them")
+        coo = to_coo(r1cs)
+        if coo.m != pk.domain_size:
+            raise ValueError("key/domain mismatch")
+        if mesh is not None:
+            if glv or timings is not None or g2_backend != "device":
+                raise ValueError("prove(mesh=) takes no glv, timings or "
+                                 "g2_backend")
+            return _prove_distributed(pk, coo, [w % FR_MOD for w in witness],
+                                      r, s, mesh, c, table_groups, tree)
+        if table_groups != 1:
+            raise ValueError("table_groups needs mesh=")
+        return _prove_single(pk, coo, witness, r, s, torch.device(device), c,
+                             glv, tree, timings, g2_backend)
+
+
+def _prove_single(pk: ProvingKey, coo, witness: List[int], r: int, s: int,
+                  device, c: int, glv: bool, tree: str,
+                  timings: Optional[dict], g2_backend: str) -> Proof:
+    """prove() on one device. Its host work is in the spans
+    groth16.encode (the witness to Montgomery limbs on the device),
+    groth16.copy_wait (the host waiting for each window-sum copy),
+    groth16.combine_g1 / combine_g2 (the Horner combines) and
+    groth16.blind; its device stages under the labels groth16.spmv_abc,
+    groth16.quotient, groth16.msm_g1 and groth16.msm_g2."""
     m = coo.m
-    if m != pk.domain_size:
-        raise ValueError("key/domain mismatch")
-    if mesh is not None:
-        if glv or timings is not None or g2_backend != "device":
-            raise ValueError("prove(mesh=) takes no glv, timings or "
-                             "g2_backend")
-        return _prove_distributed(pk, coo, [w % FR_MOD for w in witness],
-                                  r, s, mesh, c, table_groups, tree)
-    if table_groups != 1:
-        raise ValueError("table_groups needs mesh=")
-    device = torch.device(device)
     clock = [time.perf_counter()]
 
     def stage(name):
@@ -395,9 +422,10 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
             timings[name] = now - clock[0]
             clock[0] = now
 
-    w_plain = L.to_device(L.ints_to_limbs([w % FR_MOD for w in witness]),
-                          device)
-    w_mont = FR.to_mont(w_plain)
+    with span("groth16.encode"):
+        w_plain = L.to_device(L.ints_to_limbs([w % FR_MOD for w in witness]),
+                              device)
+        w_mont = FR.to_mont(w_plain)
     a_e, b_e, c_e = _abc_evals(_coo_on(coo, device), w_mont, m)
     z_coset = (pow(COSET_SHIFT, m, FR_MOD) - 1) % FR_MOD
     zinv_mont = FR.const_mont(pow(z_coset, FR_MOD - 2, FR_MOD), device)
@@ -417,7 +445,7 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
     else:
         pack = _device_pack_g1(pk, device)
         sc_cat = _scalars_cat(w_plain, h_plain, pack)
-        with record_function("groth16.msm_g1"):
+        with span("groth16.msm_g1"):
             wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
                                               pack["bounds"], distinct=True)
         wsum1_host = _to_host_standard(G1, wsum1)
@@ -437,7 +465,7 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
         g2p = _device_pack_g2(pk, device)
         sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]),
                               g2p["seg"], g2p["n_seg"])
-        with record_function("groth16.msm_g2"):
+        with span("groth16.msm_g2"):
             wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2,
                                         c=min(c, 12), distinct=True,
                                         tree=tree)
@@ -445,10 +473,14 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
     stage("msm_g2")
 
     if not glv:
-        g1_pts = combine_multi_window_sums_host(wsum1_host(), c1)
+        wsum1 = wsum1_host()
+        with span("groth16.combine_g1"):
+            g1_pts = combine_multi_window_sums_host(wsum1, c1)
     pi_a, pi_b1, pi_c, pi_h = g1_pts
     if g2_backend != "host":
-        pi_b = combine_window_sums_host_g2(wsum2_host(), c2)
+        wsum2 = wsum2_host()
+        with span("groth16.combine_g2"):
+            pi_b = combine_window_sums_host_g2(wsum2, c2)
     proof = _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
     stage("combine")
     return proof
@@ -457,25 +489,27 @@ def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
 def prove_host(pk: ProvingKey, r1cs, witness: List[int],
                r: Optional[int] = None, s: Optional[int] = None) -> Proof:
     """The same proof on the native C++ engine (zkrollup's host backend):
-    COO quotient and five Pippenger MSMs on the CPU."""
-    r, s = _check_rs(pk, r1cs, r, s)
-    if not engine.available():
-        raise RuntimeError("prove_host needs the native engine")
-    coo = to_coo(r1cs)
-    m = coo.m
-    w_bytes = engine.ints_to_fr_bytes([w % FR_MOD for w in witness])
-    h_bytes = engine.groth16_quotient(coo, w_bytes, pk.n_vars, m)
-    tbl = pk.__dict__.get("_torch_host_tables")
-    if tbl is None:
-        tbl = {"a": engine.pack_g1_table_mont(pk.a_g1),
-               "b1": engine.pack_g1_table_mont(pk.b1_g1),
-               "c": engine.pack_g1_table_mont(pk.c_g1),
-               "h": engine.pack_g1_table_mont(pk.h_g1)}
-        pk.__dict__["_torch_host_tables"] = tbl
-    nv, npub = pk.n_vars, pk.n_public
-    pi_a = engine.g1_msm_pip(tbl["a"], w_bytes, nv)
-    pi_b1 = engine.g1_msm_pip(tbl["b1"], w_bytes, nv)
-    pi_c = engine.g1_msm_pip(tbl["c"], w_bytes[32 * npub:], nv - npub)
-    pi_h = engine.g1_msm_pip(tbl["h"], h_bytes[:32 * (m - 1)], m - 1)
-    pi_b = engine.g2_msm_pip(_host_b2(pk), w_bytes, nv)
-    return _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
+    COO quotient and five Pippenger MSMs on the CPU. The whole proof is
+    the span groth16.prove, as prove()'s."""
+    with span("groth16.prove"):
+        r, s = _check_rs(pk, r1cs, r, s)
+        if not engine.available():
+            raise RuntimeError("prove_host needs the native engine")
+        coo = to_coo(r1cs)
+        m = coo.m
+        w_bytes = engine.ints_to_fr_bytes([w % FR_MOD for w in witness])
+        h_bytes = engine.groth16_quotient(coo, w_bytes, pk.n_vars, m)
+        tbl = pk.__dict__.get("_torch_host_tables")
+        if tbl is None:
+            tbl = {"a": engine.pack_g1_table_mont(pk.a_g1),
+                   "b1": engine.pack_g1_table_mont(pk.b1_g1),
+                   "c": engine.pack_g1_table_mont(pk.c_g1),
+                   "h": engine.pack_g1_table_mont(pk.h_g1)}
+            pk.__dict__["_torch_host_tables"] = tbl
+        nv, npub = pk.n_vars, pk.n_public
+        pi_a = engine.g1_msm_pip(tbl["a"], w_bytes, nv)
+        pi_b1 = engine.g1_msm_pip(tbl["b1"], w_bytes, nv)
+        pi_c = engine.g1_msm_pip(tbl["c"], w_bytes[32 * npub:], nv - npub)
+        pi_h = engine.g1_msm_pip(tbl["h"], h_bytes[:32 * (m - 1)], m - 1)
+        pi_b = engine.g2_msm_pip(_host_b2(pk), w_bytes, nv)
+        return _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)

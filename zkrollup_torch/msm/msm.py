@@ -44,10 +44,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..curve.weierstrass import affine_add_batch
 from ..fields import limbs as L
+from ..spans import span
 
 # chunk length of the sequential scan leg (msm.py:CHUNK in the reference)
 CHUNK = 128
@@ -519,7 +519,7 @@ def msm_host_combine(curve, points_affine, scalars, c: int = 12,
     Jacobian point with (16,) leaves on the scalars' device, as msm(). The
     window sums run under the prover's G1 label, as in the reference."""
     from .glv import combine_window_sums_host
-    with record_function("groth16.msm_g1"):
+    with span("groth16.msm_g1"):
         wsum, c = window_sums(curve, points_affine, scalars, c, n_bits,
                               distinct, tree, chunk)
     return combine_window_sums_host(wsum, c)
@@ -536,7 +536,7 @@ def msm_multi_host_combine(curve, packed, bounds, scalars_cat, c: int = 12,
     order. prove() runs the same steps inline, so that its G2 MSM is
     enqueued before the host waits for these window sums."""
     from .glv import combine_window_sums_host
-    with record_function("groth16.msm_g1"):
+    with span("groth16.msm_g1"):
         wsum, c = multi_window_sums(curve, packed, scalars_cat, c, bounds,
                                     distinct, chunk)
     host = curve.map(lambda a: a.cpu(), wsum)

@@ -18,6 +18,7 @@ from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass, field
 from typing import Optional
 
+from .. import spans
 from ..config import RollupConfig
 from ..chain.simulator import RollUpContract
 from .state import OperatorState
@@ -28,18 +29,39 @@ from .prover import PreparedBatch, TxProver
 @dataclass
 class BatchMetrics:
     """proofs/s and friends — the BASELINE.json headline counters
-    (SURVEY §5 metrics obligation)."""
+    (SURVEY §5 metrics obligation). last_prove_seconds: the last batch's
+    groth16.prove and groth16.verify spans."""
     batches_proven: int = 0
     txs_processed: int = 0
     proofs_failed: int = 0
     last_prove_seconds: float = 0.0
-    total_prove_seconds: float = 0.0
+    first_prove_at: Optional[float] = None     # time.perf_counter()
+    last_settled_at: Optional[float] = None
+
+    def proving(self) -> None:
+        """A batch's prove starts (the first one starts the clock)."""
+        if self.first_prove_at is None:
+            self.first_prove_at = time.perf_counter()
+
+    def proved(self, found) -> None:
+        """last_prove_seconds from the spans of the batch's trace."""
+        self.last_prove_seconds = sum(
+            s.seconds for s in found
+            if s.name in ("groth16.prove", "groth16.verify"))
+
+    def settled(self, txs: int) -> None:
+        self.batches_proven += 1
+        self.txs_processed += txs
+        self.last_settled_at = time.perf_counter()
 
     @property
     def proofs_per_second(self) -> float:
-        if self.total_prove_seconds == 0:
+        """Batches settled over the seconds from the first batch's prove
+        start to the last batch's settle."""
+        if self.first_prove_at is None or self.last_settled_at is None:
             return 0.0
-        return self.batches_proven / self.total_prove_seconds
+        wall = self.last_settled_at - self.first_prove_at
+        return self.batches_proven / wall if wall > 0 else 0.0
 
     def snapshot(self) -> dict:
         return {
@@ -103,17 +125,17 @@ class BatchDaemon:
             return False
 
         tree = self.state.load_tree()
-        t0 = time.time()
-        try:
-            proof, public_inputs, final_tree = self.prover.prove_batch(
-                tree, txs)
-        except Exception:
-            # fail-fast: proving is stateless, the batch stays queued for
-            # re-prove; surface the failure in metrics
-            self.metrics.proofs_failed += 1
-            raise
-        self.metrics.last_prove_seconds = time.time() - t0
-        self.metrics.total_prove_seconds += self.metrics.last_prove_seconds
+        self.metrics.proving()
+        with spans.trace() as batch:
+            try:
+                proof, public_inputs, final_tree = self.prover.prove_batch(
+                    tree, txs)
+            except Exception:
+                # fail-fast: proving is stateless, the batch stays queued
+                # for re-prove; surface the failure in metrics
+                self.metrics.proofs_failed += 1
+                raise
+        self.metrics.proved(batch.spans())
 
         # submit on-chain; the contract replays txData and updates its tree
         self.contract.roll_up(proof, public_inputs)
@@ -121,8 +143,7 @@ class BatchDaemon:
         # mark processed + persist the operator mirror
         self.queue.mark_processed(len(txs))
         self.state.apply_rollup_batch(final_tree)
-        self.metrics.batches_proven += 1
-        self.metrics.txs_processed += len(txs)
+        self.metrics.settled(len(txs))
         return True
 
     def run(self, poll_interval: float = 1.0, max_batches: Optional[int] = None):
@@ -150,7 +171,10 @@ class BatchDaemon:
         persistence stay strictly ordered in this (single-writer) thread;
         a failure of the witness stage or of a proof discards the
         speculative preparations and leaves every unproven tx queued.
-        The worker outlives the call: close() shuts it down.
+        The worker outlives the call: close() shuts it down. Each batch
+        is one trace (spans.py) under its first queue index: the worker's
+        spans, filed here when the batch arrives, this thread's wait for
+        it (operator.wait_witness) and its proof's spans.
         Returns the number of batches settled."""
         import queue as _q
         if not self._step_lock.acquire(blocking=False):
@@ -184,7 +208,9 @@ class BatchDaemon:
                         self._witness_pool = None
                     prepared.put(e)
                     return
-                prep = PreparedBatch(txs=txs, **fields)
+                # the batch's trace id: its first queue index
+                prep = PreparedBatch(txs=txs, trace=start, **fields)
+                spans.add(prep.spans, trace=start)
                 tree = prep.final_tree       # chain the projected tree
                 start += len(txs)
                 prepared_n += 1
@@ -196,26 +222,27 @@ class BatchDaemon:
         done = 0
         try:
             while True:
-                prep = prepared.get()
+                with spans.span("operator.wait_witness") as waited:
+                    prep = prepared.get()
+                    if isinstance(prep, PreparedBatch):
+                        waited.trace = prep.trace
                 if prep is None:
                     break
                 if isinstance(prep, Exception):
                     self.metrics.proofs_failed += 1
                     raise prep
-                t0 = time.time()
-                try:
-                    proof = self.prover.prove_prepared(prep)
-                except Exception:
-                    self.metrics.proofs_failed += 1
-                    raise
-                self.metrics.last_prove_seconds = time.time() - t0
-                self.metrics.total_prove_seconds += (
-                    self.metrics.last_prove_seconds)
+                self.metrics.proving()
+                with spans.trace(prep.trace) as batch:
+                    try:
+                        proof = self.prover.prove_prepared(prep)
+                    except Exception:
+                        self.metrics.proofs_failed += 1
+                        raise
+                self.metrics.proved(batch.spans())
                 self.contract.roll_up(proof, prep.public_signals)
                 self.queue.mark_processed(len(prep.txs))
                 self.state.apply_rollup_batch(prep.final_tree)
-                self.metrics.batches_proven += 1
-                self.metrics.txs_processed += len(prep.txs)
+                self.metrics.settled(len(prep.txs))
                 done += 1
                 if max_batches is not None and done >= max_batches:
                     break

@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Hashable, List, Optional, Tuple
 
+from .. import spans
 from ..config import RollupConfig
 from ..r1cs.circuits import synthesize_batch_process_tx, synthesize_withdraw
 from ..tree.merkle import MerkleTree
@@ -89,20 +89,32 @@ def _load_or_setup(key_path: Optional[str], r1cs, seed: Optional[bytes],
 
 @dataclass
 class ProveStats:
-    """Seconds of the last proof's witness, prove and verify; `stages`
-    stays empty unless a caller fills it (prove(timings=) synchronises the
-    device after each stage, so the operator's proofs do not ask for it)."""
+    """The last proof's seconds from its spans: `stages` by span name
+    (summed over the spans of one name), prove_s its groth16.prove,
+    verify_s its groth16.verify; witness_s the witness of the batch last
+    prepared (PreparedBatch.witness_s) or of the last withdraw proof (its
+    witness.synth)."""
     witness_s: float = 0.0
     prove_s: float = 0.0
     verify_s: float = 0.0
     stages: Dict[str, float] = field(default_factory=dict)
+
+    def take(self, found: List[spans.Span]) -> None:
+        """prove_s, verify_s and stages from the spans of one proof."""
+        self.stages = {}
+        for s in found:
+            self.stages[s.name] = self.stages.get(s.name, 0.0) + s.seconds
+        self.prove_s = self.stages.get("groth16.prove", 0.0)
+        self.verify_s = self.stages.get("groth16.verify", 0.0)
 
 
 @dataclass
 class PreparedBatch:
     """Output of the host witness stage, input of the device prove stage;
     witness_s is assemble_s (the inputs from the tree) plus synth_s (the
-    witness-only synthesis)."""
+    witness-only synthesis), the seconds of its spans witness.prepare,
+    witness.assemble and witness.synth; `spans` those spans and the
+    circuit's under them, `trace` the batch's trace id."""
     txs: List[Transaction]
     witness: List[int]
     public_signals: List[int]
@@ -110,6 +122,16 @@ class PreparedBatch:
     witness_s: float = 0.0
     assemble_s: float = 0.0
     synth_s: float = 0.0
+    spans: List[spans.Span] = field(default_factory=list)
+    trace: Optional[Hashable] = None
+
+
+def _self_verify(vk, proof: Proof, public_signals: List[int]) -> None:
+    """The mandatory self-verify, under the span groth16.verify."""
+    with spans.span("groth16.verify"):
+        ok = verify(vk, proof, public_signals)
+    if not ok:
+        raise RuntimeError("Invalid proof generated")
 
 
 class TxProver:
@@ -163,38 +185,41 @@ class TxProver:
     def prepare_batch(self, tree: MerkleTree,
                       txs: List[Transaction]) -> PreparedBatch:
         """Host stage, in this process: assemble inputs from the tree
-        snapshot and replay the witness-only synthesis."""
-        prep = PreparedBatch(txs=txs, **self.host_stage(self.cfg, tree, txs))
+        snapshot and replay the witness-only synthesis, in the caller's
+        trace or a new one (its spans are in this process's ring)."""
+        with spans.trace() as batch:
+            prep = PreparedBatch(txs=txs, trace=batch.trace,
+                                 **self.host_stage(self.cfg, tree, txs))
         self.stats.witness_s = prep.witness_s
         return prep
 
     def prove_prepared(self, prep: PreparedBatch, r: Optional[int] = None,
                        s: Optional[int] = None) -> Proof:
-        """Device stage: prove, then the mandatory self-verify."""
+        """Device stage: prove, then the mandatory self-verify, in the
+        caller's trace or a new one; stats from the proof's spans."""
         pk = self.ensure_keys()
-        t0 = time.time()
-        if self.backend == "host":
-            proof = prove_host(pk, self.structure_r1cs(), prep.witness,
-                               r=r, s=s)
-        else:
-            proof = prove(pk, self.structure_r1cs(), prep.witness, r=r, s=s,
-                          device=self.device, c=self.c, glv=self.glv,
-                          tree=self.tree)
-        self.stats.prove_s = time.time() - t0
-        t0 = time.time()
-        if not verify(pk.vk, proof, prep.public_signals):
-            raise RuntimeError("Invalid proof generated")
-        self.stats.verify_s = time.time() - t0
+        with spans.trace() as proof_trace:
+            if self.backend == "host":
+                proof = prove_host(pk, self.structure_r1cs(), prep.witness,
+                                   r=r, s=s)
+            else:
+                proof = prove(pk, self.structure_r1cs(), prep.witness, r=r,
+                              s=s, device=self.device, c=self.c,
+                              glv=self.glv, tree=self.tree)
+            _self_verify(pk.vk, proof, prep.public_signals)
+        self.stats.take(proof_trace.spans())
         return proof
 
     def prove_batch(self, tree: MerkleTree, txs: List[Transaction],
                     r: Optional[int] = None, s: Optional[int] = None
                     ) -> Tuple[Proof, List[int], MerkleTree]:
         """Assemble inputs from the tree snapshot, synthesize the witness,
-        prove, self-verify. Returns (proof, public inputs, final tree)."""
+        prove, self-verify, in one trace (the caller's or a new one).
+        Returns (proof, public inputs, final tree)."""
         self.ensure_keys()
-        prep = self.prepare_batch(tree, txs)
-        proof = self.prove_prepared(prep, r=r, s=s)
+        with spans.trace():
+            prep = self.prepare_batch(tree, txs)
+            proof = self.prove_prepared(prep, r=r, s=s)
         return proof, prep.public_signals, prep.final_tree
 
 
@@ -235,21 +260,20 @@ class WithdrawProver:
         """Synthesize the witness, prove, self-verify. Returns (proof,
         public signals). The proof is made against the cached structure
         (the circuit is static), so its COO matrices are built, and copied
-        to the device, once per prover and not once per proof."""
+        to the device, once per prover and not once per proof. The
+        witness is the span witness.synth; the proof's spans are in the
+        caller's trace or a new one, and give the stats."""
         pk = self.ensure_keys()
         r1cs = self.structure_r1cs()
-        t0 = time.time()
-        res = synthesize_withdraw(formatted_priv_key, nullifier)
-        self.stats.witness_s = time.time() - t0
-        t0 = time.time()
-        if self.backend == "host":
-            proof = prove_host(pk, r1cs, res.witness, r=r, s=s)
-        else:
-            proof = prove(pk, r1cs, res.witness, r=r, s=s,
-                          device=self.device, c=self.c)
-        self.stats.prove_s = time.time() - t0
-        t0 = time.time()
-        if not verify(pk.vk, proof, res.public_signals):
-            raise RuntimeError("Invalid proof generated")
-        self.stats.verify_s = time.time() - t0
+        with spans.trace() as proof_trace:
+            with spans.span("witness.synth"):
+                res = synthesize_withdraw(formatted_priv_key, nullifier)
+            if self.backend == "host":
+                proof = prove_host(pk, r1cs, res.witness, r=r, s=s)
+            else:
+                proof = prove(pk, r1cs, res.witness, r=r, s=s,
+                              device=self.device, c=self.c)
+            _self_verify(pk.vk, proof, res.public_signals)
+        self.stats.take(proof_trace.spans())
+        self.stats.witness_s = self.stats.stages.get("witness.synth", 0.0)
         return proof, res.public_signals

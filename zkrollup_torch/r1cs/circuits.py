@@ -22,6 +22,7 @@ from ..ref import babyjubjub as bjj
 from ..config import (RollupConfig, TX_DATA_WITH_SIG_LENGTH,
                       TX_DATA_WITHOUT_SIG_LENGTH,
                       BALANCE_TREE_LEAF_DATA_LENGTH)
+from ..spans import span
 from .builder import Builder, LC
 from . import gadgets as g
 
@@ -38,10 +39,12 @@ def process_tx(bld: Builder, depth: int, balance_tree_root, tx_data,
     recipient_path_idx = g.num2bits(bld, tx_data[TO], depth)
 
     # Step 1.1: signature over txData[0..4] (processtx.circom:73-82)
-    valid_sig = g.verify_eddsa_signature(
-        bld, sender_pub[0], sender_pub[1], tx_data[R8X], tx_data[R8Y],
-        tx_data[SIG_S], [tx_data[i] for i in range(TX_DATA_WITHOUT_SIG_LENGTH)])
-    bld.enforce_equal(valid_sig, 1)
+    with span("synth.signature"):
+        valid_sig = g.verify_eddsa_signature(
+            bld, sender_pub[0], sender_pub[1], tx_data[R8X], tx_data[R8Y],
+            tx_data[SIG_S],
+            [tx_data[i] for i in range(TX_DATA_WITHOUT_SIG_LENGTH)])
+        bld.enforce_equal(valid_sig, 1)
 
     # Step 1.2: nonce, amount, fee (processtx.circom:85-95)
     bld.enforce_equal(tx_data[NONCE], sender_nonce + LC.const(1))
@@ -56,38 +59,43 @@ def process_tx(bld: Builder, depth: int, balance_tree_root, tx_data,
         bld, sender_balance, tx_data[AMOUNT] + tx_data[FEE], n=253)
     bld.enforce_equal(sufficient, 1)
 
-    # Step 3: both leaves exist in the current tree (processtx.circom:106-135)
-    sender_leaf = g.mimc_multihash(
-        bld, [sender_pub[0], sender_pub[1], sender_balance, sender_nonce])
-    recipient_leaf = g.mimc_multihash(
-        bld, [recipient_pub[0], recipient_pub[1], recipient_balance,
-              recipient_nonce])
-    g.merkle_leaf_exists(bld, sender_leaf, sender_path, sender_path_idx,
-                         balance_tree_root)
-    g.merkle_leaf_exists(bld, recipient_leaf, recipient_path,
-                         recipient_path_idx, balance_tree_root)
+    with span("synth.tree"):        # Steps 3-5
+        # Step 3: both leaves exist in the current tree
+        # (processtx.circom:106-135)
+        sender_leaf = g.mimc_multihash(
+            bld, [sender_pub[0], sender_pub[1], sender_balance, sender_nonce])
+        recipient_leaf = g.mimc_multihash(
+            bld, [recipient_pub[0], recipient_pub[1], recipient_balance,
+                  recipient_nonce])
+        g.merkle_leaf_exists(bld, sender_leaf, sender_path, sender_path_idx,
+                             balance_tree_root)
+        g.merkle_leaf_exists(bld, recipient_leaf, recipient_path,
+                             recipient_path_idx, balance_tree_root)
 
-    # Step 4: new leaves, self-send mux (processtx.circom:137-171)
-    new_sender_balance = sender_balance - tx_data[AMOUNT] - tx_data[FEE]
-    new_sender_leaf = g.mimc_multihash(
-        bld, [sender_pub[0], sender_pub[1], new_sender_balance,
-              tx_data[NONCE]])
+        # Step 4: new leaves, self-send mux (processtx.circom:137-171)
+        new_sender_balance = sender_balance - tx_data[AMOUNT] - tx_data[FEE]
+        new_sender_leaf = g.mimc_multihash(
+            bld, [sender_pub[0], sender_pub[1], new_sender_balance,
+                  tx_data[NONCE]])
 
-    same = g.is_equal(bld, tx_data[FROM], tx_data[TO])
-    sel_recipient_balance = g.mux1(bld, recipient_balance,
-                                   new_sender_balance, same)
-    sel_recipient_nonce = g.mux1(bld, recipient_nonce, tx_data[NONCE], same)
-    new_recipient_leaf = g.mimc_multihash(
-        bld, [recipient_pub[0], recipient_pub[1],
-              sel_recipient_balance + tx_data[AMOUNT], sel_recipient_nonce])
+        same = g.is_equal(bld, tx_data[FROM], tx_data[TO])
+        sel_recipient_balance = g.mux1(bld, recipient_balance,
+                                       new_sender_balance, same)
+        sel_recipient_nonce = g.mux1(bld, recipient_nonce, tx_data[NONCE],
+                                     same)
+        new_recipient_leaf = g.mimc_multihash(
+            bld, [recipient_pub[0], recipient_pub[1],
+                  sel_recipient_balance + tx_data[AMOUNT],
+                  sel_recipient_nonce])
 
-    # Step 5: intermediate root check + final root (processtx.circom:173-192)
-    computed_intermediate = g.merkle_root_from_path(
-        bld, new_sender_leaf, sender_path, sender_path_idx)
-    bld.enforce_equal(computed_intermediate, intermediate_root)
+        # Step 5: intermediate root check + final root
+        # (processtx.circom:173-192)
+        computed_intermediate = g.merkle_root_from_path(
+            bld, new_sender_leaf, sender_path, sender_path_idx)
+        bld.enforce_equal(computed_intermediate, intermediate_root)
 
-    final_root = g.merkle_root_from_path(
-        bld, new_recipient_leaf, intermediate_path, recipient_path_idx)
+        final_root = g.merkle_root_from_path(
+            bld, new_recipient_leaf, intermediate_path, recipient_path_idx)
     return final_root
 
 
