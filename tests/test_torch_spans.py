@@ -8,9 +8,10 @@
   user_annotation event of the exported trace (the whole proof's trace is
   tests/test_torch_tools.py's);
 - run_pipeline: each batch's worker spans (witness.prepare, its
-  children, the circuit's synth.signature and synth.tree) are filed under
-  the batch's trace id, beside this process's operator.wait_witness for
-  it, on one clock;
+  children, the circuit's synth.signature with its
+  synth.signature.replay, and synth.tree) are filed under the batch's
+  trace id, beside this process's operator.wait_witness for it, on one
+  clock;
 - the ring keeps its bound; the recorder and the witness stage import no
   torch;
 - BatchMetrics.proofs_per_second counts settled batches over wall time,
@@ -53,7 +54,7 @@ PROOF_SPANS = collections.Counter({
     "groth16.copy_wait": 2, "groth16.combine_g1": 1,
     "groth16.combine_g2": 1, "groth16.blind": 1})
 WITNESS_SPANS = ("witness.prepare", "witness.assemble", "witness.synth",
-                 "synth.signature", "synth.tree")
+                 "synth.signature", "synth.signature.replay", "synth.tree")
 
 
 @pytest.fixture(scope="module")
@@ -287,6 +288,7 @@ def test_pipeline_files_each_batch_under_its_queue_index():
         assert by["witness.prepare"].end_ns < by["operator.wait_witness"].end_ns
         assert by["witness.synth"].parent == by["witness.prepare"].id
         assert by["synth.signature"].parent == by["witness.synth"].id
+        assert by["synth.signature.replay"].parent == by["synth.signature"].id
     assert daemon.metrics.batches_proven == 2
 
 

@@ -24,6 +24,7 @@ from ..ref.bn254 import R as P
 from ..ref import babyjubjub as bjj
 from ..ref.mimc import mimcsponge_constants, N_ROUNDS_SPONGE
 from .builder import Builder, LC, _as_lc
+from . import eddsa_replay
 
 
 # -- bits -------------------------------------------------------------------
@@ -324,6 +325,13 @@ def eddsa_verify(bld: Builder, ax, ay, s, r8x, r8y, msg) -> LC:
 def verify_eddsa_signature(bld: Builder, from_x, from_y, r8x, r8y, s,
                            preimage: Sequence) -> LC:
     """VerifyEdDSASignature(k): hash preimage, then verify
-    (eddsa.circom:113-139)."""
+    (eddsa.circom:113-139). In witness-only synthesis (record=False)
+    eddsa_replay appends the same values from plain ints, unless it
+    declines (a zero denominator, constant coordinates)."""
+    if not bld.record:
+        valid = eddsa_replay.verify_eddsa_signature(
+            bld, from_x, from_y, r8x, r8y, s, preimage)
+        if valid is not None:
+            return valid
     m = mimc_multihash(bld, preimage)
     return eddsa_verify(bld, from_x, from_y, s, r8x, r8y, m)
