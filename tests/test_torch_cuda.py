@@ -695,7 +695,50 @@ def test_prove_batch_on_cuda_equals_prove_prepared(cuda_device):
         "groth16.prove", "groth16.encode", "groth16.spmv_abc",
         "groth16.quotient", "groth16.msm_g1", "groth16.msm_g2",
         "groth16.copy_wait", "groth16.combine_g1", "groth16.combine_g2",
-        "groth16.blind", "groth16.verify"}
+        "groth16.blind", "groth16.verify", "groth16.msm_group"}
+    assert prover.stats.stages["groth16.msm_group"] > 0
+
+
+@pytest.mark.cuda
+def test_prove_in_window_groups_on_cuda(cuda_device, monkeypatch):
+    """BatchProcessTx(1, 4) with the card's free memory standing in at a
+    third of what each MSM's windows take: three groth16.msm_group spans
+    under each curve's stage, and the native engine's proof bytes; the
+    prover's next proof, at the card's own free memory, one group a
+    curve and the same bytes."""
+    import collections
+    import math
+    from zkrollup_torch import spans
+    from zkrollup_torch.config import RollupConfig
+    from zkrollup_torch.groth16.prove import prove_host
+    from zkrollup_torch.operator.prover import TxProver
+    prover = TxProver(RollupConfig(batch_size=1, tree_depth=4),
+                      setup_seed=b"zkrollup-test-seed", device=cuda_device)
+    prep = prover.prepare_batch(*_tx_batch(prover, 41516261718191101))
+    want = prove_host(prover.ensure_keys(), prover.structure_r1cs(),
+                      prep.witness, r=5, s=6)
+    sizes = []
+    real = msm.window_groups
+
+    def third(n_windows, n_leaves, n_points, free):
+        sizes.append(real(n_windows, n_leaves, n_points, free))
+        room = (n_points * msm.LEAF_BYTES + (math.ceil(n_windows / 3) + 0.5)
+                * msm.window_bytes(n_leaves, n_points))
+        return real(n_windows, n_leaves, n_points, room / msm.FREE_SHARE)
+    for grouped in (True, False):
+        with monkeypatch.context() as m:
+            if grouped:
+                m.setattr(msm, "window_groups", third)
+            with spans.trace() as t:
+                proof = prover.prove_prepared(prep, r=5, s=6)
+        assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+        found = t.spans()
+        by_id = {s.id: s for s in found}
+        under = collections.Counter(by_id[s.parent].name for s in found
+                                    if s.name == "groth16.msm_group")
+        n = 3 if grouped else 1
+        assert under == {"groth16.msm_g1": n, "groth16.msm_g2": n}
+    assert sizes == [22, 22]       # the card's own memory: one group each
 
 
 @pytest.mark.cuda

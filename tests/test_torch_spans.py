@@ -72,19 +72,27 @@ def cubic():
 def test_prove_records_each_stage_under_one_proof_span(cubic):
     """The spans of a CPU proof: each stage once, copy_wait twice, one
     trace, one groth16.prove their ancestor, each inside its parent's
-    interval; the proof keeps the native engine's bytes."""
+    interval; the MSMs' one window group each a groth16.msm_group under
+    groth16.msm_g1 and groth16.msm_g2; the proof keeps the native engine's
+    bytes."""
     pk, r1cs, witness = cubic
     with spans.trace() as t:
         proof = prove(pk, r1cs, witness, r=2, s=3, device="cpu", c=4)
     found = t.spans()
-    assert collections.Counter(s.name for s in found) == PROOF_SPANS
+    assert collections.Counter(s.name for s in found) == \
+        PROOF_SPANS + collections.Counter({"groth16.msm_group": 2})
     assert {s.trace for s in found} == {t.trace}
     by_id = {s.id: s for s in found}
     (root,) = [s for s in found if s.name == "groth16.prove"]
     assert root.parent is None and found[-1] is root
+    groups = [by_id[s.parent].name for s in found
+              if s.name == "groth16.msm_group"]
+    assert sorted(groups) == ["groth16.msm_g1", "groth16.msm_g2"]
     for s in found:
         if s is not root:
-            assert s.parent == root.id    # every stage a child of the proof
+            if s.name != "groth16.msm_group":
+                # every stage a child of the proof
+                assert s.parent == root.id
             parent = by_id[s.parent]
             assert parent.start_ns <= s.start_ns <= s.end_ns \
                 <= parent.end_ns
@@ -136,6 +144,29 @@ def test_no_record_function_without_a_profiler(cubic, monkeypatch):
         with span("groth16.prove"), span("groth16.encode"):
             pass
     assert entered == ["groth16.prove", "groth16.encode"]
+
+
+def test_a_span_without_label_stays_out_of_the_profiler(tmp_path):
+    """span(name, label=False) under a profiler session: recorded and
+    marked profiled, but no user_annotation of its name, so the device
+    work inside it keeps its parent's label."""
+    from torch.profiler import ProfilerActivity, profile
+    with spans.trace() as t:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with span("groth16.msm_g1"):
+                with span("groth16.msm_group", label=False):
+                    torch.ones(2) + 1
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    got = {e["name"] for e in events if e.get("ph") == "X"
+           and e.get("cat") == "user_annotation"}
+    assert "groth16.msm_g1" in got and "groth16.msm_group" not in got
+    found = t.spans()
+    assert [(s.name, s.profiled) for s in found] == [
+        ("groth16.msm_group", True), ("groth16.msm_g1", True)]
+    assert found[0].parent == found[1].id
 
 
 def test_profiled_spans_are_user_annotations(tmp_path):

@@ -38,6 +38,15 @@ The prover brings window sums to the host for a Horner combine there
 of the Horner kernel. The reference reads its strategy from
 ZKROLLUP_MSM_TREE at import; the port takes it as the `tree` argument and
 reads no environment.
+
+Windows are independent rows: each is sorted, scanned and summed alone.
+window_sums and multi_window_sums work through them in groups whose
+working set fits the device memory free at the call (window_groups: the
+windows a group takes, from the point count and torch.cuda.mem_get_info),
+each group the span groth16.msm_group. Where every window fits, as for
+the (2,6) batch circuit's key on an 80 GB card, there is one group and
+the launches are those of one call over all windows; off CUDA there is no
+bound and one group. The window sums do not depend on the grouping.
 """
 
 from __future__ import annotations
@@ -53,6 +62,14 @@ from ..spans import span
 CHUNK = 128
 # the bucket strategies (msm.py:_TREE_MODE in the reference)
 TREES = ("scan", "scan1", "affine", "jacobian")
+# device bytes of a field element's limbs
+LEAF_BYTES = L.N_LIMBS * 4
+# int64 words a point of a window holds at the scan's peak: its sorted
+# key, the sort's permutation and the gather index
+INDEX_WORDS = 3
+# the share of the free device memory one group's working set may take:
+# room for the estimate's error and for the allocator's rounding
+FREE_SHARE = 0.7
 
 
 def _check_tree(tree: str) -> None:
@@ -160,6 +177,56 @@ def _reduce_axis1(curve, pts):
         cur = _add_2d(curve, curve.map(lambda a: a[:, 0::2], cur),
                       curve.map(lambda a: a[:, 1::2], cur))
     return curve.map(lambda a: a[:, 0], cur)
+
+
+def window_bytes(n_leaves: int, n_points: int) -> int:
+    """Device bytes one window of the chunked scan holds at its peak, over
+    n_points points whose coordinates have n_leaves field elements each (1
+    in G1, 2 in G2): the gathered Jacobian points, the sequential leg's
+    prefixes and their stacked copy (three points of 3 n_leaves elements),
+    and INDEX_WORDS int64 words, a point."""
+    point = 3 * n_leaves * LEAF_BYTES
+    return n_points * (3 * point + 8 * INDEX_WORDS)
+
+
+def window_groups(n_windows: int, n_leaves: int, n_points: int,
+                  free_bytes) -> int:
+    """The windows one group takes: as many as fit FREE_SHARE of
+    free_bytes beside one coordinate's masked copy of the table, at least
+    one; every window where free_bytes is None (no bound known)."""
+    if free_bytes is None:
+        return n_windows
+    room = free_bytes * FREE_SHARE - n_points * LEAF_BYTES
+    fit = int(room // window_bytes(n_leaves, n_points))
+    return max(1, min(n_windows, fit))
+
+
+def _free_bytes(device):
+    """Device memory a group may take on `device`: what CUDA reports free
+    and what PyTorch's caching allocator holds unused; None off CUDA."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    held = torch.cuda.memory_stats_as_nested_dict(device)
+    return (free + held["reserved_bytes"]["all"]["current"]
+            - held["allocated_bytes"]["all"]["current"])
+
+
+def _in_groups(curve, rows, n_leaves: int, window_fn):
+    """window_fn over the windows of `rows` ((W, n) digits or keys, one
+    row a window) in groups that fit the device (window_groups), each
+    under the span groth16.msm_group (no profiler label: the device time
+    stays under the caller's stage label); the groups' sums concatenated
+    along the window axis."""
+    W, n = rows.shape
+    g = window_groups(W, n_leaves, n, _free_bytes(rows.device))
+    parts = []
+    for w0 in range(0, W, g):
+        with span("groth16.msm_group", label=False):
+            parts.append(window_fn(rows[w0:w0 + g]))
+    if len(parts) == 1:
+        return parts[0]
+    return curve.map(lambda *ls: torch.cat(ls), *parts)
 
 
 def _flat_window_sums_scan2(curve, keys, xy, inf, c: int, n_tables: int,
@@ -446,10 +513,11 @@ def pack_tables(tables, chunk: int = CHUNK):
 
 def multi_window_sums(curve, points, scalars_cat, c: int, bounds,
                       distinct: bool, chunk: int = CHUNK):
-    """Window sums of several tables in one scan (msm.py:_multi_window_sums).
-    points: concatenated (x, y, inf) tensors from pack_tables; scalars_cat:
-    (N, 16) plain scalars aligned with them (zeros in the padding). Returns
-    (wsum with leaves (W, n_tables, 16), c)."""
+    """Window sums of several tables in one scan (msm.py:_multi_window_sums),
+    its windows in groups that fit the device (window_groups). points:
+    concatenated (x, y, inf) tensors from pack_tables; scalars_cat: (N, 16)
+    plain scalars aligned with them (zeros in the padding). Returns (wsum
+    with leaves (W, n_tables, 16), c)."""
     x, y, inf = points
     N = scalars_cat.shape[0]
     n_tables = len(bounds)
@@ -459,9 +527,11 @@ def multi_window_sums(curve, points, scalars_cat, c: int, bounds,
     off = np.full((N,), (n_tables - 1) << c, np.int64)   # padding: last table
     for t, (s, l) in enumerate(bounds):
         off[s:s + l] = t << c
-    keys = digits + torch.from_numpy(off).to(digits.device)[None]
-    return _flat_window_sums_scan2(curve, keys, (x, y), inf, c, n_tables,
-                                   distinct, chunk), c
+    keys = digits.add_(torch.from_numpy(off).to(digits.device)[None])
+    return _in_groups(
+        curve, keys, len(curve.F.leaves(x)),
+        lambda k: _flat_window_sums_scan2(curve, k, (x, y), inf, c,
+                                          n_tables, distinct, chunk)), c
 
 
 def _pad_problem(curve, points_affine, scalars):
@@ -486,8 +556,10 @@ def window_sums(curve, points_affine, scalars, c: int = 12,
                 tree: str = "scan", chunk: int = CHUNK):
     """Single-table window sums (msm.py:window_sums): points_affine (x, y,
     inf) tensors, scalars (n, 16) plain limbs, each below 2^n_bits. The
-    problem is padded to a power of two. Returns (wsum with leaves (W, 16),
-    c), W = ceil(n_bits / c). tree picks the bucket strategy (TREES);
+    problem is padded to a power of two; its windows run in groups that fit
+    the device (window_groups, sized by the chunked scan's working set
+    whatever the tree). Returns (wsum with leaves (W, 16), c), W =
+    ceil(n_bits / c). tree picks the bucket strategy (TREES);
     distinct=True lets "scan" take the no-double kernels and needs
     pairwise-distinct points."""
     _check_tree(tree)
@@ -495,8 +567,10 @@ def window_sums(curve, points_affine, scalars, c: int = 12,
     n_windows = (n_bits + c - 1) // c
     (x, y, inf), scalars = _pad_problem(curve, points_affine, scalars)
     digits = window_digits(scalars, c, n_windows)
-    return _flat_window_sums(curve, digits, (x, y), inf, c, distinct, tree,
-                             chunk), c
+    return _in_groups(
+        curve, digits, len(curve.F.leaves(x)),
+        lambda d: _flat_window_sums(curve, d, (x, y), inf, c, distinct,
+                                    tree, chunk)), c
 
 
 def msm(curve, points_affine, scalars, c: int = 12, n_bits: int = 256,

@@ -23,7 +23,10 @@ timeline as they are.
 While a torch.profiler session records on the span's thread, the span
 also enters torch.profiler.record_function(name): the device trace then
 holds it on the profiler's own clock, and the device's work and idle
-stretches can be put under the program's names. Otherwise a span costs
+stretches can be put under the program's names; a span made with
+label=False never does, so that the device work launched inside it stays
+under its parent's label (the MSM's window groups, under
+groth16.msm_g1 and groth16.msm_g2). Otherwise a span costs
 two clock reads, two looks for a profiler and an append. This module
 never imports torch, and looks for it in sys.modules, so that the
 witness worker stays torch-free (witness/batch.py).
@@ -64,14 +67,17 @@ def _profiling() -> bool:
 
 
 class Span:
-    """One named stretch of work, a context manager: span(name, trace)."""
+    """One named stretch of work, a context manager: span(name, trace,
+    label); label=False keeps it out of the profiler's labels."""
 
     __slots__ = ("name", "trace", "id", "parent", "start_ns", "end_ns",
-                 "profiled", "_label")
+                 "profiled", "labels", "_label")
 
-    def __init__(self, name: str, trace: Optional[Hashable] = None):
+    def __init__(self, name: str, trace: Optional[Hashable] = None,
+                 label: bool = True):
         self.name = name
         self.trace = trace
+        self.labels = label
         self.id = next(_ids)
         self.parent: Optional[int] = None
         self.start_ns = self.end_ns = 0
@@ -88,7 +94,7 @@ class Span:
             self.parent = stack[-1].id
             if self.trace is None:
                 self.trace = stack[-1].trace
-        if _profiling():
+        if self.labels and _profiling():
             from torch.profiler import record_function
             self._label = record_function(self.name)
             self._label.__enter__()
@@ -114,9 +120,9 @@ class Span:
                 f"{', profiled' if self.profiled else ''})")
 
 
-# span(name, trace=None): a span of trace `trace` (by default its
-# parent's, or the trace open on this thread), recorded when its `with`
-# ends
+# span(name, trace=None, label=True): a span of trace `trace` (by default
+# its parent's, or the trace open on this thread), recorded when its
+# `with` ends
 span = Span
 
 
