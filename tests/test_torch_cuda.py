@@ -13,10 +13,11 @@ bucket strategies and the GLV MSM against the native engine; the G2
 point-kernel check; the field add and sub kernels and the MiMC sponge
 kernel against their plain versions on ragged launches, with broadcast
 operands and keys; a small setup on the card against the native engine's;
-TxProver.prove_batch against prove_prepared; the BatchProcessTx(2,6)
-proof against the native engine; and the operator loop: a withdraw proof
-against the native engine's, the pipelined batch daemon settling on the
-chain simulator, and the provers' default device. Every test needs a CUDA
+TxProver.prove_batch against prove_prepared; the witness's pinned
+staging across proofs; the BatchProcessTx(2,6) proof against the native
+engine; and the operator loop: a withdraw proof against the native
+engine's, the pipelined batch daemon settling on the chain simulator, and
+the provers' default device. Every test needs a CUDA
 device and skips without one.
 
 The file imports neither JAX nor the zkrollup package, so it runs where JAX
@@ -739,6 +740,41 @@ def test_prove_in_window_groups_on_cuda(cuda_device, monkeypatch):
         n = 3 if grouped else 1
         assert under == {"groth16.msm_g1": n, "groth16.msm_g2": n}
     assert sizes == [22, 22]       # the card's own memory: one group each
+
+
+@pytest.mark.cuda
+def test_witness_staging_between_proofs_on_cuda(cuda_device):
+    """BatchProcessTx(1, 4): proofs of two batches in turns, each
+    prove_host's proof, every entry through the native pass, one pinned
+    staging buffer on the key; and two encodings in a row behind a
+    sleeping stream, the second written only after the first's copy left
+    the buffer: each device tensor holds its own witness's rows."""
+    from zkrollup_torch.config import RollupConfig
+    from zkrollup_torch.groth16 import prove as P
+    from zkrollup_torch.operator.prover import TxProver
+    prover = TxProver(RollupConfig(batch_size=1, tree_depth=4),
+                      setup_seed=b"zkrollup-test-seed", device=cuda_device)
+    pk = prover.ensure_keys()
+    preps = [prover.prepare_batch(*_tx_batch(prover, priv))
+             for priv in (41516261718191101, 27182818284590452)]
+    ws = [p.witness for p in preps]
+    assert ws[0] != ws[1]
+    wants = [P.prove_host(pk, prover.structure_r1cs(), w, r=5, s=6)
+             for w in ws]
+    L.reset_encoded()
+    for prep, want in zip(preps * 2, wants * 2):
+        proof = prover.prove_prepared(prep, r=5, s=6)
+        assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+    assert L.ENCODED == {"native": 4 * len(ws[0]), "fallback": 0}
+    staging = pk.__dict__["_torch_staging"]
+    assert len(staging) == 1
+    assert next(iter(staging.values())).host.is_pinned()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)        # the copies queue behind it
+    got = [P._encode_witness(pk, w, cuda_device) for w in ws]
+    for g, w in zip(got, ws):
+        want = L.ints_to_limbs([v % ref.R for v in w]).astype(np.int32)
+        assert torch.equal(g.cpu(), torch.from_numpy(want))
 
 
 @pytest.mark.cuda

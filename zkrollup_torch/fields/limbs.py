@@ -9,13 +9,24 @@ has no add or shift, and int64 leaves room for lazy limb sums.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
+
+from ..native import limbs as native_limbs
+from ..ref.bn254 import R as FR_MOD
+from ..spans import span
 
 N_LIMBS = 16
 LIMB_BITS = 16
 MASK = 0xFFFF
 DTYPE = torch.int32
+
+# the entries encode_fr took in its native pass and in Python (the
+# fallback), summed over this process's calls; reset_encoded() zeroes them
+ENCODED = {"native": 0, "fallback": 0}
+_encoded_lock = threading.Lock()
 
 
 # -- host codec (numpy, the reference's uint32 arrays) ------------------------
@@ -33,6 +44,33 @@ def ints_to_limbs(xs) -> np.ndarray:
     raw = b"".join((x & mask).to_bytes(32, "little") for x in xs)
     return np.frombuffer(raw, dtype="<u2").reshape(
         len(xs), N_LIMBS).astype(np.uint32)
+
+
+def reset_encoded() -> None:
+    with _encoded_lock:
+        for k in ENCODED:
+            ENCODED[k] = 0
+
+
+def encode_fr(xs, out: torch.Tensor) -> None:
+    """Rows of [x % r for x in xs] into `out`, a contiguous CPU
+    (len(xs), 16) DTYPE tensor: ints_to_limbs([x % r for x in xs]) as
+    DTYPE, bit for bit, for any entries. One native pass takes the ints in
+    [0, r); the others, or every entry where the native library is
+    missing, take that Python expression under the span
+    groth16.encode.fallback (no profiler label). ENCODED counts both."""
+    if not isinstance(xs, list):
+        xs = list(xs)
+    rows = out.numpy()
+    slow = native_limbs.fr_rows(xs, rows)
+    if slow is None:
+        slow = np.arange(len(xs))
+    with _encoded_lock:
+        ENCODED["native"] += len(xs) - len(slow)
+        ENCODED["fallback"] += len(slow)
+    if len(slow):
+        with span("groth16.encode.fallback", label=False):
+            rows[slow] = ints_to_limbs([xs[i] % FR_MOD for i in slow])
 
 
 def limbs_to_ints(a) -> list:

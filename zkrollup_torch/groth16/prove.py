@@ -2,7 +2,9 @@
 
 Counterpart of the device branch of zkrollup/groth16/prove.py:prove:
 
-  1. witness -> Montgomery limbs (mont_mul kernel)
+  1. witness mod r -> canonical limbs in one native pass on the host
+     (fields/limbs.py encode_fr, native/limbs.c), staged through pinned
+     memory to the device, then Montgomery limbs (mont_mul kernel)
   2. sparse A/B/C evaluation over the domain: one Montgomery product per
      term with the witness gathered by the kernel, per-limb int64
      index_add_ into the rows, the fold mod r (fold kernel)
@@ -41,12 +43,13 @@ above; table_groups > 1 deals the tables to disjoint groups of the mesh,
 each on its own CUDA streams. The same bytes again.
 
 Every proof is the span groth16.prove (spans.py); the stages of the
-single-device path are spans under it: groth16.encode (step 1's host
-part), groth16.spmv_abc (2), groth16.quotient (3), groth16.msm_g1 (5),
-groth16.msm_g2 (6), groth16.copy_wait (7: the host waiting for each
-copy), groth16.combine_g1 and groth16.combine_g2 (the Horner combines)
-and groth16.blind. The four device stages keep the reference's
-jax.named_scope names.
+single-device path are spans under it: groth16.encode (step 1, with
+groth16.encode.fallback under it where some entry of the witness is no
+int in [0, r)), groth16.spmv_abc (2), groth16.quotient (3),
+groth16.msm_g1 (5), groth16.msm_g2 (6), groth16.copy_wait (7: the host
+waiting for each copy), groth16.combine_g1 and groth16.combine_g2 (the
+Horner combines) and groth16.blind. The four device stages keep the
+reference's jax.named_scope names.
 
 prove_host mirrors the reference's host path (zkrollup/groth16/prove.py:
 _prove_host) on the native engine; it is the independent check the device
@@ -56,6 +59,7 @@ proof is held against.
 from __future__ import annotations
 
 import secrets
+import threading
 import time
 from typing import List, Optional
 
@@ -79,6 +83,46 @@ from ..msm.glv import (combine_multi_window_sums_host,
 from ..spans import span
 from .keys import ProvingKey, Proof
 from .qap import to_coo
+
+
+class _Staging:
+    """A pinned host buffer for the witness rows of one length on one CUDA
+    device, the event recorded behind its last copy to the device, and a
+    lock held from its write to that event's record."""
+
+    def __init__(self, n: int):
+        self.host = torch.empty((n, L.N_LIMBS), dtype=L.DTYPE,
+                                pin_memory=True)
+        self.copied: Optional[torch.cuda.Event] = None
+        self.lock = threading.Lock()
+
+
+def _encode_witness(pk: ProvingKey, witness, device) -> torch.Tensor:
+    """The witness mod r as canonical limb rows on `device` (L.encode_fr),
+    encoded afresh on every call. On a CPU device into the result itself;
+    on a CUDA device into a pinned staging buffer kept on the key for the
+    device and the witness length, then copied without blocking. The next
+    write to that buffer first waits for the copy's event."""
+    xs = witness if isinstance(witness, list) else list(witness)
+    shape = (len(xs), L.N_LIMBS)
+    if device.type != "cuda":
+        out = torch.empty(shape, dtype=L.DTYPE)
+        L.encode_fr(xs, out)
+        return out
+    cache = pk.__dict__.setdefault("_torch_staging", {})
+    key = (str(device), len(xs))
+    st = cache.get(key)
+    if st is None:
+        st = cache.setdefault(key, _Staging(len(xs)))
+    with st.lock:
+        if st.copied is not None:
+            st.copied.synchronize()
+        L.encode_fr(xs, st.host)
+        w_plain = torch.empty(shape, dtype=L.DTYPE, device=device)
+        w_plain.copy_(st.host, non_blocking=True)
+        st.copied = torch.cuda.Event()
+        st.copied.record(torch.cuda.current_stream(device))
+    return w_plain
 
 
 def _spmv(row, var, coeff_mont, w_mont, m: int) -> torch.Tensor:
@@ -406,7 +450,8 @@ def _prove_single(pk: ProvingKey, coo, witness: List[int], r: int, s: int,
                   device, c: int, glv: bool, tree: str,
                   timings: Optional[dict], g2_backend: str) -> Proof:
     """prove() on one device. Its host work is in the spans
-    groth16.encode (the witness to Montgomery limbs on the device),
+    groth16.encode (the witness to Montgomery limbs on the device;
+    groth16.encode.fallback under it for the entries reduced in Python),
     groth16.copy_wait (the host waiting for each window-sum copy),
     groth16.combine_g1 / combine_g2 (the Horner combines) and
     groth16.blind; its device stages under the labels groth16.spmv_abc,
@@ -423,8 +468,7 @@ def _prove_single(pk: ProvingKey, coo, witness: List[int], r: int, s: int,
             clock[0] = now
 
     with span("groth16.encode"):
-        w_plain = L.to_device(L.ints_to_limbs([w % FR_MOD for w in witness]),
-                              device)
+        w_plain = _encode_witness(pk, witness, device)
         w_mont = FR.to_mont(w_plain)
     a_e, b_e, c_e = _abc_evals(_coo_on(coo, device), w_mont, m)
     z_coset = (pow(COSET_SHIFT, m, FR_MOD) - 1) % FR_MOD

@@ -34,60 +34,80 @@ _LIB_PATH = os.path.join(BUILD_DIR, "libzkhost.so")
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
             "-fno-exceptions", "-pthread", "-shared")
 
-_lib = None
-_tried = False
-_lock = threading.Lock()
 
-
-def _stale() -> bool:
-    if not os.path.exists(_LIB_PATH):
+def stale(lib_path: str, srcs: Sequence[str]) -> bool:
+    """True where lib_path is missing or older than one of srcs."""
+    if not os.path.exists(lib_path):
         return True
-    built = os.path.getmtime(_LIB_PATH)
-    srcs = [os.path.join(_SRC_DIR, f) for f in _SOURCES]
+    built = os.path.getmtime(lib_path)
     return any(os.path.getmtime(p) > built for p in srcs if os.path.exists(p))
 
 
-def build(quiet: bool = True) -> bool:
+def compile_shared(cmd: Sequence[str], lib_path: str,
+                   timeout: float) -> Optional[str]:
+    """Run the compiler command `cmd` with `-o` a temporary file beside
+    lib_path, then rename that file to lib_path, so several processes may
+    build at once. Returns None on success, else what went wrong (the
+    compiler's standard error where it ran)."""
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    try:
+        res = subprocess.run([*cmd, "-o", tmp], capture_output=True,
+                             timeout=timeout)
+        err = (None if res.returncode == 0 and os.path.exists(tmp) else
+               res.stderr.decode(errors="replace").strip()
+               or f"exit code {res.returncode}")
+    except (OSError, subprocess.TimeoutExpired) as e:
+        err = str(e)
+    if err is not None:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return err
+    os.replace(tmp, lib_path)
+    return None
+
+
+def load_once(open_lib):
+    """A function that returns open_lib()'s result (a library, or None),
+    calling open_lib at most once a process, under a lock."""
+    lock = threading.Lock()
+    opened = []
+
+    def load():
+        with lock:
+            if not opened:
+                opened.append(open_lib())
+            return opened[0]
+    return load
+
+
+def build() -> bool:
     """Compile native/src/api.cc into build/native/libzkhost.so. Returns
     True on success."""
     src = os.path.join(_SRC_DIR, "api.cc")
     if not os.path.exists(src):
         return False
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", tmp, src]
+    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, src]
+    return compile_shared(cmd, _LIB_PATH, timeout=300) is None
+
+
+def _open():
+    if stale(_LIB_PATH, [os.path.join(_SRC_DIR, f) for f in _SOURCES]):
+        if os.environ.get("ZKROLLUP_NATIVE", "auto") == "0":
+            return None
+        if not build():
+            return None
     try:
-        res = subprocess.run(cmd, capture_output=quiet, timeout=300)
-    except (OSError, subprocess.TimeoutExpired):
-        res = None
-    if res is None or res.returncode != 0 or not os.path.exists(tmp):
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        return False
-    os.replace(tmp, _LIB_PATH)
-    return True
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    lib.zkh_version.restype = ctypes.c_int
+    if lib.zkh_version() < 4:
+        return None
+    return lib
 
 
-def _load():
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if _stale():
-            if os.environ.get("ZKROLLUP_NATIVE", "auto") == "0":
-                return None
-            if not build():
-                return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
-        lib.zkh_version.restype = ctypes.c_int
-        if lib.zkh_version() < 4:
-            return None
-        _lib = lib
-        return _lib
+_load = load_once(_open)
 
 
 def available() -> bool:
