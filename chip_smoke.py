@@ -50,12 +50,12 @@ Phases; any failure raises and the script exits non-zero:
      ragged launches of 33 and 1,025 lanes with P + P in the last warp),
      all six on ragged launches of 1, 22 and 33 lanes and on one lane
      (timed); the z01 adds (g1_add_z01 over the called Fq product,
-     g2_add_z01 on thread pairs) also at the msm_trees leaf level's
-     1,441,792 lanes (timed there), on the warp-vote cases and on ragged
-     launches; the vote cases also with a P + (-P) lane; the adds without
-     a doubling path (g1_add_nd over the called Fq product, g2_add_nd on
-     thread pairs) on ragged launches of 1, 22, 33 and 1,025 lanes and on
-     one lane, their H = 0 lanes (P + P, P + (-P)) and infinity operands
+     g2_add_z01 on thread pairs) also at 1,441,792 lanes (timed there),
+     on the warp-vote cases and on ragged launches; the vote cases also
+     with a P + (-P) lane; the adds without a doubling path (g1_add_nd
+     over the called Fq product, g2_add_nd on thread pairs) on ragged
+     launches of 1, 22, 33 and 1,025 lanes and on one lane, their H = 0
+     lanes (P + P, P + (-P)) and infinity operands
      among them; the eight
      integer-unit kernels (the TPU tool's body over six ops, and two
      multiply-only chains) at the width and reps of phase 7's rate run
@@ -97,36 +97,28 @@ Phases; any failure raises and the script exits non-zero:
      attributed by correlation id to the label open at its launch; the
      four labels in the reference's order, each kernel of LABEL_KERNELS
      that launched under its label; peak memory) and evals_quotient's
-     parts on the host clock, and two proofs with g2_backend="host" (the
-     G2 MSM on the native engine beside the card's G1 work; the same
-     bytes); then one more proof at the pinned (r, s) whose G1 add
-     and madd_nd operands are kept (cuda_curve's wrappers are wrapped in
-     this script for that proof only): for each g1_add launch the share of
-     lanes and of 32-lane warps on the doubling path, then g1_add at its
-     two widest launches and g1_madd_nd at one launch, on those operands,
-     bit for bit against the plain versions and timed beside the bound
+     parts on the host clock; then one more proof at the pinned (r, s)
+     whose G1 add and madd_nd operands are kept (cuda_curve's wrappers are
+     wrapped in this script for that proof only): for each g1_add launch
+     the share of lanes and of 32-lane warps on the doubling path, then
+     g1_add at its two widest launches and g1_madd_nd at one launch, on
+     those operands, bit for bit against the plain versions and timed
+     beside the bound
   5. the MSMs over the key's a table (with its duplicate points and
      infinity rows) and its undeduplicated b2 table, against the native
-     engine's Pippenger over the same tables, as affine points: msm() with
-     the default bucket strategy (the "msm" path), then with the other
-     three strategies and msm_glv with two of them (the "msm_trees" path);
-     on each table's window sums the Horner kernel equals horner_loop limb
-     for limb, and msm() is timed with the Horner kernel and with the
-     window sums and horner_loop, in turns; msm(tree="affine") is timed
-     with the inversion kernel and with the route before it (the product
-     tree, its root by inv_loop), in turns, each equal to the native engine,
-     and with FieldCtx.add / sub on their carry loop (carry_loop_route), in
-     turns; limbs.normalize on CUDA tensors never on the two paths
-  6. the GLV prover with the Jacobian merge tree (TxProver(glv=True,
-     tree="jacobian"), the "prove_glv" path): the batch of phase 4 at the
-     same pinned (r, s), whose bytes must equal phase 4's proof and the
-     native engine's, self-verified; then a second, timed proof
+     engine's Pippenger over the same tables, as affine points: msm() (the
+     "msm" path); on each table's window sums the Horner kernel equals
+     horner_loop limb for limb, and msm() is timed with the Horner kernel
+     and with the window sums and horner_loop, in turns, each equal to the
+     native engine; limbs.normalize on CUDA tensors never on the path
+  6. (no phase: the numbers of the phases after it are kept)
   7. the tools (the "tools" path): profile_alu's rates of the integer
      unit beside the documented multiply peak and each kernel's bound, and
      the point-kernel check
      of every G2 kernel against zkrollup_torch.ref; then (the "curve" path)
-     JacobianCurve.add_nd and double over G1, the methods that reach
-     g1_add_nd and g1_double, against zkrollup_torch.ref; then (the
+     JacobianCurve.add_nd, double and add_z01 over G1, the methods that
+     reach g1_add_nd, g1_double and g1_add_z01, against
+     zkrollup_torch.ref; then (the
      "measure" path) the measurement tools once each at the reference's
      sizes, every result held: trace_prove (the (2,6) demo batch, its
      device time by label), prove_breakdown (the stages' proof equal to
@@ -135,17 +127,16 @@ Phases; any failure raises and the script exits non-zero:
      64-256) against the native engine, profile_kernels (2^20) against
      the plain versions; and mesh_prove_check on the withdraw circuit
      over a virtual mesh of four in a process of its own, which must
-     print MESH WITHDRAW OK. After phases 4-7 and 9 a profiler check
+     print MESH WITHDRAW OK. After phases 4, 5, 7 and 9 a profiler check
      counts the device events of one aten op and one ctypes launch
   8. the launch count and the lanes of every kernel on each path (setup,
-     the first proof, the MSMs, the strategies, the GLV proof, the tools,
-     the G1 add_nd, the measurement tools), each counted from 0 just
-     before its path; each kernel
-     of a path must launch on it; on prove ntt_pass and mont_mul[fr] at most
-     six times, fold[fr] eight times, mont_mul[fq] at most five times,
-     limbs.normalize on CUDA tensors never; on the msm paths one Horner a
-     msm() call and no double, on "msm" 34 adds a curve, and on
-     "msm_trees" mont_mul[fq] and the inversions within MSM_LIMITS
+     the first proof, the MSMs, the tools, the G1 curve methods, the
+     measurement tools), each counted from 0 just before its path; each
+     kernel of a path must launch on it; on prove ntt_pass and
+     mont_mul[fr] at most six times, fold[fr] eight times, mont_mul[fq] at
+     most five times, limbs.normalize on CUDA tensors never; on the msm
+     paths one Horner a msm() call and no double, on "msm" 34 adds a
+     curve (MSM_LIMITS)
   9. the operator loop through the port's entry points (the "operator"
      path): `python -m zkrollup_torch.cli demo-rollup` in-process on the
      card with phase 3's key cached in a temporary --keys-dir (the
@@ -284,11 +275,6 @@ PATHS = {
               "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add"),
     "msm": ("g1_madd", "g2_madd", "g1_horner", "g2_horner", "g1_add",
             "g2_add"),
-    "msm_trees": ("mont_mul[fq]", "inv[fq]", "inv[fq2]", "g1_add", "g2_add",
-                  "g1_add_z01", "g2_add_z01", "g1_madd", "g1_horner",
-                  "g2_horner", "add[fq]", "sub[fq]"),
-    "prove_glv": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
-                  "g1_add_z01", "g1_add", "g2_add_z01", "g2_add"),
     "tools": ("g2_add_nd", "g2_add_z01", "alu_mul", "alu_add",
               "alu_shift_add", "alu_f32_mul12", "alu_mul16", "alu_umulhi",
               "alu_mad_lo", "alu_mad_hi"),
@@ -299,7 +285,7 @@ PATHS = {
     "measure": ("mont_mul[fr]", "mont_mul[fq]", "ntt_pass", "fold[fr]",
                 "g1_madd_nd", "g1_add", "g2_madd_nd", "g2_add", "g1_madd",
                 "g1_horner", "inv[fq]"),
-    "curve": ("g1_add_nd", "g1_double"),
+    "curve": ("g1_add_nd", "g1_double", "g1_add_z01"),
     # phase 9: the operator loop's proofs (demo-rollup, the daemon, the
     # HTTP service) with phase 3's key; the withdraw circuit's setup and
     # proofs
@@ -403,9 +389,9 @@ MSM_MADD_LANES = 22_528
 SETUP_LIMITS = {"g1_madd": (32, 32), "g2_madd": (32, 32),
                 "mont_mul[fq]": (1, 16), "inv[fq]": (1, 1),
                 "inv[fq2]": (1, 1)}
-# the widths of g2_add_z01 phase 2 holds it at beyond 2^16 lanes: the
-# Jacobian merge tree's leaf level on the msm paths (22 windows x 2^16
-# lanes, the b2 table padded to 2^17 pairs)
+# the widths of the z01 adds phase 2 holds them at beyond 2^16 lanes: 22
+# windows x 2^16 lanes, as wide as a window-sum launch over a table of
+# 2^17 points
 Z01_SHAPES = {"g1_add_z01": (1_441_792,), "g2_add_z01": (1_441_792,)}
 # point kernels without a doubling path that phase 2 holds on ragged
 # launches and one lane beyond 2^16 lanes (no warp vote)
@@ -461,22 +447,12 @@ MADD_ND_KEPT = 63
 # the Horner of one msm() over 256-bit scalars at c = 12: 22 windows
 HORNER_W, HORNER_C = 22, 12
 # launches on the msm paths (phase 8): one Horner a msm() call (the "msm"
-# path one a curve, "msm_trees" three: its msm_glv calls combine on the
-# host), no double; on "msm" the scan route's 34 adds a curve (the halving
-# reduce, the chunk-total scan, the boundary add and the table-end
-# subtraction), where the one-lane Horner route added 22 more; on
-# "msm_trees" at most the counts of the (2,6) key's tables: one inversion
-# a level of the affine tree (17 levels a curve) and 243 mont_mul[fq]
-# (the affine adds' products, 4 a level over G1 and 10 over G2, and the
-# GLV tables' and negations'), where the 362-launch Fermat chain a level
-# made 15,288
+# path one a curve), no double; on "msm" the scan's 34 adds a curve (the
+# halving reduce, the chunk-total scan, the boundary add and the table-end
+# subtraction), where the one-lane Horner route added 22 more
 MSM_LIMITS = {
     "msm": {"g1_horner": (1, 1), "g2_horner": (1, 1), "g1_double": (0, 0),
             "g2_double": (0, 0), "g1_add": (34, 34), "g2_add": (34, 34)},
-    "msm_trees": {"g1_horner": (3, 3), "g2_horner": (3, 3),
-                  "g1_double": (0, 0), "g2_double": (0, 0),
-                  "mont_mul[fq]": (1, 243), "inv[fq]": (1, 17),
-                  "inv[fq2]": (1, 17)},
     # profile_msm's four msm() calls (a first and three steady) one Horner
     # each; every other MSM of the tools combines on the host
     "measure": {"g1_horner": (4, 4), "g2_horner": (0, 0),
@@ -719,7 +695,7 @@ def max_abs_err(got, want) -> int:
 
 def inv_loop(a):
     """The Fq inversion as it ran before the inversion kernel, the
-    baseline phases 2 and 5 time it against: Fermat, a^(q - 2), one
+    baseline phase 2 times it against: Fermat, a^(q - 2), one
     mont_mul[fq] launch a product (FieldCtx.mont_pow_const over the kernel
     wrapper: 253 squares, 109 products)."""
     from zkrollup_torch.fields.mont import FQ
@@ -734,24 +710,6 @@ def inv2_loop(a):
     norm = FQ.add(FQ.mont_mul(a[0], a[0]), FQ.mont_mul(a[1], a[1]))
     ninv = inv_loop(norm)
     return (FQ.mont_mul(a[0], ninv), FQ.neg(FQ.mont_mul(a[1], ninv)))
-
-
-@contextlib.contextmanager
-def inv_loop_route():
-    """While open, weierstrass.batch_inverse runs as it did before the
-    inversion kernel: the product tree (a mont_mul launch over each level)
-    with its root inverted by inv_loop or inv2_loop."""
-    from zkrollup_torch.curve import weierstrass as W
-    saved = (W.batch_inverse, W.FqOps.__dict__["inv"],
-             W.Fq2Ops.__dict__["inv"])
-    W.batch_inverse = W.batch_inverse_tree
-    W.FqOps.inv = staticmethod(inv_loop)
-    W.Fq2Ops.inv = staticmethod(inv2_loop)
-    try:
-        yield
-    finally:
-        W.batch_inverse = saved[0]
-        W.FqOps.inv, W.Fq2Ops.inv = saved[1], saved[2]
 
 
 @contextlib.contextmanager
@@ -1230,7 +1188,7 @@ def horner_cases(curve, p) -> dict:
     """Phase 2's window sums for the Horner kernels, {label: (wsum, c,
     adds on the doubling path)}, from rows of p (phase 2's Jacobian
     operand: Z != 1, rows 5.. finite and distinct, row 4 infinity): the
-    msm's W = 22 at c = 12, W = 1 and 2, the GLV tables' W = 11, small c,
+    msm's W = 22 at c = 12, W = 1, 2 and 11 (130-bit scalars), small c,
     infinity windows at the top, the middle and the bottom and every
     window infinity, W_1 = 2^c res (the add's doubling path; W_1 in other
     Jacobian limbs than res), W_1 = -(2^c res) and, as the last window,
@@ -1257,7 +1215,7 @@ def horner_cases(curve, p) -> dict:
         f"W={HORNER_W}, c={c}": (rows(*range(5, 5 + HORNER_W)), c, 0),
         f"W=1, c={c}": (rows(5), c, 0),
         f"W=2, c={c}": (rows(5, 6), c, 0),
-        f"W=11, c={c} (GLV tables)": (rows(*range(5, 16)), c, 0),
+        f"W=11, c={c} (130-bit scalars)": (rows(*range(5, 16)), c, 0),
         "W=9, c=1": (rows(*range(20, 29)), 1, 0),
         "W=6, c=3": (rows(*range(30, 36)), 3, 0),
         "W=22, c=2, windows 0, 10, 20 and 21 infinity": (
@@ -1641,7 +1599,7 @@ def widths_of(name: str) -> list:
     if name in ND_SHAPES:
         return [(m, "tools") for m in ND_SHAPES[name]]
     if name in Z01_SHAPES:
-        return [(m, "msm_trees leaves") for m in Z01_SHAPES[name]]
+        return [(m, "22 x 2^16 lanes") for m in Z01_SHAPES[name]]
     if name in SETUP_SHAPES:
         return ([(m, "setup") for m in SETUP_SHAPES[name]]
                 + [(MSM_MADD_LANES, "msm")])
@@ -2055,17 +2013,6 @@ def main_path(dev, prover, launches):
         log(f"  prove(timings=) {i + 1}: {time.time() - t0:.3f} s, stages "
             "(a device synchronize after each) " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stages.items()))
-    for i in range(2):
-        t0 = time.time()
-        hproof = prove(pk, r1cs, prep.witness, r=r0, s=s0, device=dev,
-                       c=prover.c, g2_backend="host")
-        log(f"  prove(g2_backend='host') {i + 1}: {time.time() - t0:.3f} s "
-            "(the G2 MSM on the native engine while the card runs G1"
-            + (", the b2 table packed for it first)" if i == 0 else ")"))
-        if proof_bytes(hproof) != proof_bytes(proof):
-            raise AssertionError("the proof with g2_backend='host' differs "
-                                 "from the device path's")
-    log("  its bytes equal the device path's")
     profile_proof(dev, prover, prep)
     return prep, proof_bytes(proof)
 
@@ -2291,18 +2238,14 @@ def check_prove_operands(adds, madd, results):
 def msm_phase(dev, pk, witness, launches):
     """Phase 5: the MSMs over the real a and b2 tables (the a table holds
     duplicate points and infinity rows) against the native engine's
-    Pippenger: msm() with the default strategy ("msm" path), then the
-    other three strategies and msm_glv ("msm_trees" path); then, per
-    curve, the Horner kernel against the one-lane route (horner_loop) on
-    the tables' window sums, limb for limb, and msm() timed through
-    each; then msm(tree="affine") timed with the inversion kernel and with
-    the route before it (inv_loop_route)."""
+    Pippenger: msm() ("msm" path); then, per curve, the Horner kernel
+    against the one-lane route (horner_loop) on the tables' window sums,
+    limb for limb, and msm() timed through each."""
     import numpy as np
     import torch
     from zkrollup_torch import kernels
     from zkrollup_torch.curve import g1, g2
     from zkrollup_torch.fields import limbs as L
-    from zkrollup_torch.msm.glv import msm_glv
     from zkrollup_torch.msm.msm import msm, window_sums
     from zkrollup_torch.native import engine
     from zkrollup_torch.ref.bn254 import R as FR_MOD
@@ -2349,25 +2292,10 @@ def msm_phase(dev, pk, witness, launches):
     with cuda_normalize_calls() as norm:
         for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
             times[f"msm_{name}_scan"] = timed(
-                f"msm({name.upper()}, c=12, distinct=False, tree='scan')",
+                f"msm({name.upper()}, c=12, distinct=False)",
                 name, lambda: msm(curve, tbl, sc, c=12, distinct=False))
     count_path(launches, "msm")
     check_no_normalize("the msm path", norm[0])
-
-    kernels.reset_launches()
-    with cuda_normalize_calls() as norm:
-        for tree in ("scan1", "affine", "jacobian"):
-            for name, curve, tbl in (("g1", g1.G1, a_tbl),
-                                     ("g2", g2.G2, b_tbl)):
-                times[f"msm_{name}_{tree}"] = timed(
-                    f"msm({name.upper()}, c=12, tree={tree!r})", name,
-                    lambda: msm(curve, tbl, sc, c=12, tree=tree))
-        for tree in ("scan", "jacobian"):
-            times[f"msm_glv_{tree}"] = timed(
-                f"msm_glv(a_g1, c=12, tree={tree!r})", "g1",
-                lambda: msm_glv(a_tbl, sc, c=12, tree=tree))
-    count_path(launches, "msm_trees")
-    check_no_normalize("the msm_trees path", norm[0])
 
     # the Horner's two routes on these tables: on one set of window sums,
     # the kernel's limbs against the one-lane route's; then msm() (window
@@ -2392,56 +2320,7 @@ def msm_phase(dev, pk, witness, launches):
             f"Horner kernel " + " ".join(f"{t:.4f}" for t in secs["horner"])
             + ", one-lane route " + " ".join(f"{t:.4f}" for t in secs["loop"]))
 
-    # the affine strategy's batched inversions: one inv[fq] / inv[fq2]
-    # launch a tree level against the route before the kernel (the product
-    # tree, its root by inv_loop); and its adds and subs on their kernels
-    # against the carry loop (carry_loop_route); in turns, each equal to
-    # the native engine
-    routes = {"kernel": ("inversion and adds by kernel",
-                         contextlib.nullcontext),
-              "loop": ("inversion by product tree and inv_loop",
-                       inv_loop_route),
-              "carry": ("adds on the carry loop", carry_loop_route)}
-    for name, curve, tbl in (("g1", g1.G1, a_tbl), ("g2", g2.G2, b_tbl)):
-        def affine(route):
-            with routes[route][1]():
-                return msm(curve, tbl, sc, c=12, tree="affine")
-        secs = {r: [] for r in routes}
-        for r in ("kernel", "loop", "carry", "carry", "loop", "kernel"):
-            secs[r].append(timed(f"msm({name.upper()}, tree='affine'), "
-                                 f"{routes[r][0]}", name,
-                                 lambda: affine(r)))
-        times[f"msm_{name}_affine_routes"] = secs
-        log(f"  msm({name.upper()}, tree='affine') seconds, " + "; ".join(
-            f"{routes[r][0]} " + " ".join(f"{t:.4f}" for t in secs[r])
-            for r in routes))
     return times
-
-
-def glv_phase(dev, prover, prep, want_bytes, launches):
-    """Phase 6: the GLV prover with the Jacobian merge tree on the key of
-    phase 3, the batch of phase 4 at its pinned (r, s)."""
-    from zkrollup_torch import kernels
-    from zkrollup_torch.operator.prover import TxProver
-
-    gp = TxProver(prover.cfg, key_path=None, setup_seed=SETUP_SEED,
-                  device=dev, c=12, glv=True, tree="jacobian")
-    gp.pk = prover.ensure_keys()
-    kernels.reset_launches()
-    t0 = time.time()
-    proof = gp.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
-    first_s = time.time() - t0
-    count_path(launches, "prove_glv")
-    log(f"  first GLV proof (tree='jacobian', self-verified): {first_s:.3f} s"
-        f" (prove {gp.stats.prove_s:.3f}, verify {gp.stats.verify_s:.3f})")
-    if proof_bytes(proof) != want_bytes:
-        raise AssertionError("the GLV proof differs from the default proof "
-                             "and the native engine's")
-    log("  its bytes equal the default proof's and the native engine's")
-    t0 = time.time()
-    gp.prove_prepared(prep, r=PINNED_RS[0], s=PINNED_RS[1])
-    log(f"  second GLV proof: {time.time() - t0:.3f} s (prove "
-        f"{gp.stats.prove_s:.3f}, verify {gp.stats.verify_s:.3f})")
 
 
 def tools_phase(dev, results, launches):
@@ -2472,10 +2351,10 @@ def tools_phase(dev, results, launches):
 
 
 def curve_path(dev, launches):
-    """Phase 7, the "curve" path: JacobianCurve.add_nd and double over G1,
-    the public methods that reach g1_add_nd and g1_double, on distinct
-    lanes, P + (-P), infinities and non-unit Z, against
-    zkrollup_torch.ref."""
+    """Phase 7, the "curve" path: JacobianCurve.add_nd, double and add_z01
+    over G1, the public methods that reach g1_add_nd, g1_double and
+    g1_add_z01, on distinct lanes, P + (-P), infinities and non-unit Z
+    (add_z01: Z in {0, 1}), against zkrollup_torch.ref."""
     from zkrollup_torch import kernels
     from zkrollup_torch.curve import g1
     from zkrollup_torch.ref import bn254 as ref
@@ -2491,17 +2370,17 @@ def curve_path(dev, launches):
     s2 = g1.G1.add(jac(q), jac(q))
     kernels.reset_launches()
     got = [g1.G1.add_nd(jac(p), jac(q)), g1.G1.add_nd(s1, s2),
-           g1.G1.double(s1)]
+           g1.G1.double(s1), g1.G1.add_z01(jac(p), jac(q))]
     count_path(launches, "curve")
     sums = [ref.g1_add(a, b) for a, b in zip(p, q)]
     want = [sums, [ref.g1_add(a, ref.g1_add(b, b)) for a, b in zip(sums, q)],
-            [ref.g1_add(a, a) for a in sums]]
+            [ref.g1_add(a, a) for a in sums], sums]
     if [g1.to_affine_host(g) for g in got] != want:
-        raise AssertionError("G1.add_nd or G1.double differs from "
-                             "zkrollup_torch.ref")
-    log(f"  G1.add_nd on {dev} (g1_add_nd), Z = 1 and non-unit Z, and "
-        "G1.double (g1_double), non-unit Z and infinity: equal "
-        "zkrollup_torch.ref")
+        raise AssertionError("G1.add_nd, G1.double or G1.add_z01 differs "
+                             "from zkrollup_torch.ref")
+    log(f"  G1.add_nd on {dev} (g1_add_nd), Z = 1 and non-unit Z, "
+        "G1.double (g1_double), non-unit Z and infinity, and G1.add_z01 "
+        "(g1_add_z01), Z in {0, 1}: equal zkrollup_torch.ref")
 
 
 def measure_phase(dev, prover, launches) -> dict:
@@ -3893,15 +3772,9 @@ def main() -> int:
     check_prove_operands(*keep_prove_operands(prover, prep), results)
     profiler_check(dev, "after phase 4")
 
-    log("phase 5: the MSMs over the key's tables, four bucket strategies "
-        "and GLV")
+    log("phase 5: the MSMs over the key's tables")
     msm_phase(dev, prover.pk, prep.witness, launches)
     profiler_check(dev, "after phase 5")
-
-    log("phase 6: the GLV prover with the Jacobian merge tree, "
-        "BatchProcessTx(2, 6)")
-    glv_phase(dev, prover, prep, want_bytes, launches)
-    profiler_check(dev, "after phase 6")
 
     log("phase 7: tools")
     tools_phase(dev, results, launches)

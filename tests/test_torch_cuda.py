@@ -9,7 +9,7 @@ route of one double or add launch a step, and the integer-unit kernels of
 tools/profile_alu.py too); the NTT, the quotient, the MSM window sums and the general MSM on
 the card against the same functions on the CPU, one Horner launch and no
 double a msm() call; the
-bucket strategies and the GLV MSM against the native engine; the G2
+MSM over a table with duplicates against the native engine; the G2
 point-kernel check; the field add and sub kernels and the MiMC sponge
 kernel against their plain versions on ragged launches, with broadcast
 operands and keys; a small setup on the card against the native engine's;
@@ -794,9 +794,8 @@ def test_point_kernel_check_on_cuda(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["g1", "g2"])
 def test_msm_trees_on_cuda_match_native_engine(cuda_device, name):
-    """Every bucket strategy over a table with duplicates and infinity
-    rows on the card, against the native engine; the G1 GLV MSM too."""
-    from zkrollup_torch.msm.glv import msm_glv
+    """msm() over a table with duplicates and infinity rows on the card,
+    against the native engine."""
     curve, mod = (g1.G1, g1) if name == "g1" else (g2.G2, g2)
     (x, y, inf), sc = _dup_table(curve, 200, 13)
     tbl = tuple(np.asarray(v) if not isinstance(v, tuple)
@@ -811,14 +810,8 @@ def test_msm_trees_on_cuda_match_native_engine(cuda_device, name):
     on = lambda v: curve.F.from_leaves([a.to(cuda_device)
                                         for a in curve.F.leaves(v)])
     pts = (on(x), on(y), inf.to(cuda_device))
-    affine = lambda pt: mod.to_affine_host(pt)[0]
-    for tree in msm.TREES:
-        got = msm.msm(curve, pts, sc.to(cuda_device), c=6, tree=tree)
-        assert affine(got) == want, tree
-    if name == "g1":
-        for tree in ("scan", "jacobian"):
-            got = msm_glv(pts, sc.to(cuda_device), c=6, tree=tree)
-            assert affine(got) == want, f"glv {tree}"
+    got = msm.msm(curve, pts, sc.to(cuda_device), c=6)
+    assert mod.to_affine_host(got)[0] == want
 
 
 @pytest.mark.cuda

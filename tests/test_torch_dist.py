@@ -316,7 +316,6 @@ def test_prove_takes_device_or_mesh(mesh_proofs):
     r1cs, w = bld.r1cs(), bld.witness()
     m = dm.make_mesh(2, device="cpu")
     for kw in ({}, {"device": "cpu", "mesh": m},
-               {"mesh": m, "g2_backend": "host"},
                {"device": "cpu", "table_groups": 2}):
         with pytest.raises(ValueError):
             P.prove(pk, r1cs, w, r=3, s=5, **kw)

@@ -213,25 +213,3 @@ def test_withdraw_proof_equals_host_engine_and_verifies(keys):
     want = jprove(jpk, res.r1cs, res.witness, r=3, s=4, backend="host")
     assert _abc(proof) == _abc(want)
     assert V.verify(pk.vk, proof, res.public_signals)
-
-
-@pytest.mark.parametrize("glv, tree", [(True, "jacobian"), (True, "affine"),
-                                       (False, "jacobian")])
-def test_cubic_proof_with_glv_and_trees(keys, cubic_proof, glv, tree):
-    """The GLV G1 MSMs and the bucket strategies (the G2 MSM's too) give
-    the same bytes as the default path and the host engine."""
-    r1cs, pk, jpk = keys["cubic"]
-    bld = cubic_builder()
-    proof = P.prove(pk, r1cs, bld.witness(), r=7, s=9, device="cpu", c=8,
-                    glv=glv, tree=tree)
-    assert _abc(proof) == _abc(cubic_proof[0])
-    assert _abc(proof) == _abc(jprove(jpk, r1cs, bld.witness(), r=7, s=9,
-                                      backend="host"))
-    assert V.verify(pk.vk, proof, bld.public_signals())
-
-
-def test_prove_rejects_unknown_tree(keys):
-    r1cs, pk, _ = keys["cubic"]
-    with pytest.raises(ValueError, match="tree="):
-        P.prove(pk, r1cs, cubic_builder().witness(), r=7, s=9, device="cpu",
-                tree="buckets")

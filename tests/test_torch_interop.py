@@ -1,13 +1,12 @@
-"""zkrollup_torch's key, proof and circuit formats and its G2 host backend
-against zkrollup's, on the CPU.
+"""zkrollup_torch's key, proof and circuit formats against zkrollup's, on
+the CPU.
 
 groth16/interop.py (snarkjs JSON, websnark binary) is the reference's module
 over the port's own codecs: on one key both give the same dicts and bytes,
 and a key round-tripped through either format proves the same bytes.
 groth16/solvk.py, r1cs/circom_loader.py and ref/cipher.py are copies
 (also held by test_torch_copies.py); here they meet the repository's
-fixtures. prove(g2_backend="host") runs the G2 MSM on the native engine
-and gives the device path's bytes.
+fixtures.
 """
 
 import dataclasses
@@ -206,14 +205,3 @@ def test_cipher_matches_reference():
     j1 = jcipher.ecdh_encrypt(msg, priv_a, pub_b)
     assert (e1.iv, e1.msg) == (j1.iv, j1.msg)
     assert cipher.ecdh_decrypt(e1, priv_b, eddsa.gen_public_key(priv_a)) == msg
-
-
-def test_g2_host_backend_gives_the_same_bytes(keyed):
-    bld, _, pk, proof = keyed
-    got = P.prove(pk, bld.r1cs(), bld.witness(), *RS, device="cpu", c=8,
-                  g2_backend="host")
-    assert _abc(got) == _abc(proof)
-    assert "_torch_host_b2" in pk.__dict__      # packed once, kept on the key
-    with pytest.raises(ValueError, match="g2_backend"):
-        P.prove(pk, bld.r1cs(), bld.witness(), *RS, device="cpu",
-                g2_backend="cpu")

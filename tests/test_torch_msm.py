@@ -5,12 +5,15 @@ MSMs against engine.g1_msm_pip / g2_msm_pip. The general MSM
 (msm(distinct=False), Horner on the device) runs over tables with duplicate
 and infinity points, against msm.msm for G1 and the native engine and
 zkrollup.ref for G1 and G2; against msm.msm for G2 in the slow tier (the
-reference's G2 msm takes minutes to compile for the CPU). The four bucket
-strategies (tree=) over collision-heavy inputs: every one against
-zkrollup.ref for G1 and G2, and window by window against the reference's
-window_sums with the same strategy (msm._TREE_MODE): "jacobian" in the fast
-tier, the others and G2 in the slow tier (each reference compile takes
-25-60 s for G1 on the CPU, minutes for G2).
+reference's G2 msm takes minutes to compile for the CPU). The window sums
+over collision-heavy inputs against zkrollup.ref for G1 and G2, and window
+by window against the reference's window_sums with its chunked scan
+(msm._TREE_MODE "scan") in the slow tier (the reference compile takes
+25-60 s for G1 on the CPU, minutes for G2). The window sums at chunk 16
+over every edge of the padding and of the chunk (n from 1 to 33: one
+point, one partial chunk, exactly one chunk, two and four chunks, the
+clamped window of a tiny n), distinct=True against distinct=False, and
+scalars below 2^n_bits, each against zkrollup_torch.ref.
 
 Window sums are compared as affine points: the two packages sum the same
 points in different orders, so their Jacobian representatives differ.
@@ -36,8 +39,8 @@ from zkrollup_torch.curve import g1, g2
 from zkrollup_torch.fields import limbs as L
 from zkrollup_torch.fields.mont import FQ
 from zkrollup_torch.msm import msm
-from zkrollup_torch.msm.glv import (combine_multi_window_sums_host,
-                                    combine_window_sums_host_g2)
+from zkrollup_torch.msm.combine import (combine_multi_window_sums_host,
+                                        combine_window_sums_host_g2)
 
 # One intra-op thread per process: the suite runs in several worker
 # processes, whose torch thread pools would otherwise fight for the cores.
@@ -276,22 +279,19 @@ def _port_affine(points, curve_mod):
     return dev(x), dev(y), torch.from_numpy(inf)
 
 
-@pytest.mark.parametrize("tree", msm.TREES)
-def test_trees_match_ref(tree):
-    """Every strategy, G1 over the collision-heavy input and G2 over a
-    table with duplicates, at c = 3: window sums on the port, Horner on
-    the host, against zkrollup.ref."""
+def test_window_sums_match_ref():
+    """G1 over the collision-heavy input and G2 over a table with
+    duplicates, at c = 3: window sums on the port, Horner on the host,
+    against zkrollup.ref."""
     pts, sc = _collision_input()
     got = msm.msm_host_combine(g1.G1, _port_affine(pts, g1),
-                               L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
-                               tree=tree)
+                               L.to_device(L.ints_to_limbs(sc), "cpu"), c=3)
     want = ref.g1_msm(pts[:-1], sc[:-1])
     assert g1.to_affine_host([c.reshape(1, 16) for c in got]) == [want]
 
     pts, sc = _g2_collision_input()
     wsum, c = msm.window_sums(g2.G2, _port_affine(pts, g2),
-                              L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
-                              tree=tree)
+                              L.to_device(L.ints_to_limbs(sc), "cpu"), c=3)
     std = tuple((FQ.from_mont(a[0]), FQ.from_mont(a[1])) for a in wsum)
     acc = None
     for p, k in zip(pts, sc):
@@ -299,54 +299,132 @@ def test_trees_match_ref(tree):
     assert combine_window_sums_host_g2(std, c) == acc
 
 
-def test_unknown_tree_raises():
-    pts, sc = _collision_input()
-    with pytest.raises(ValueError, match="'scan', 'scan1', 'affine' or "
-                                         "'jacobian'"):
-        msm.window_sums(g1.G1, _port_affine(pts, g1),
-                        L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
-                        tree="buckets")
+def _small_table(name, n, seed, dups=True):
+    """n affine points as tensors, with the ref points and scalars as
+    limbs and ints. Row 0 takes the scalar r - 1; where n allows, row 1 is
+    infinity, the last row repeats row 0 with its scalar (dups=True; else
+    it is another point), and row 2 takes the scalar 0 and row 3 is
+    infinity too."""
+    ks = random.Random(seed).sample(range(1, 1 << 30), n + 1)
+    sc = _scalars(n, seed + 1)
+    sc[0] = FR_MOD - 1
+    if n >= 3 and dups:
+        ks[n - 1], sc[n - 1] = ks[0], sc[0]
+    inf_rows = [i for i in (1, 3) if i < n and (i == 1 or n >= 5)]
+    if n >= 5:
+        sc[2] = 0
+    ks = ks[:n]
+    pts = [None if i in inf_rows else
+           (ref.g1_mul(ref.G1_GEN, k) if name == "g1"
+            else ref.g2_mul(ref.G2_GEN, k)) for i, k in enumerate(ks)]
+    mod = g1 if name == "g1" else g2
+    return _port_affine(pts, mod), pts, sc
 
 
-def _jax_window_sums(monkeypatch, jcurve, points, sc, tree, c):
-    monkeypatch.setattr(jmsm, "_TREE_MODE", tree)
+def _ref_msm(name, pts, sc):
+    add, mul = ((ref.g1_add, ref.g1_mul) if name == "g1"
+                else (ref.g2_add, ref.g2_mul))
+    acc = None
+    for p, k in zip(pts, sc):
+        acc = add(acc, mul(p, k) if p else None)
+    return acc
+
+
+def _combined(name, wsum, c):
+    """The host Horner of window sums with (W, 16) Montgomery leaves ->
+    an affine point | None."""
+    if name == "g1":
+        std = tuple(FQ.from_mont(a)[:, None] for a in wsum)
+        return combine_multi_window_sums_host(std, c)[0]
+    std = tuple((FQ.from_mont(a[0]), FQ.from_mont(a[1])) for a in wsum)
+    return combine_window_sums_host_g2(std, c)
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+@pytest.mark.parametrize("n", [1, 2, 5, 15, 16, 17, 31, 33])
+def test_window_sums_sizes_match_ref(name, n):
+    """chunk 16, c = 3, distinct=False, over the edges of the padding to a
+    power of two and of the chunk: n = 1 and 2 (K = N, c clamped to 2),
+    5 (one partial chunk), 15 and 16 (exactly one chunk, with and without
+    padding), 17 and 31 (two chunks), 33 (four chunks)."""
+    curve = g1.G1 if name == "g1" else g2.G2
+    table, pts, sc = _small_table(name, n, 40 + n)
+    wsum, c = msm.window_sums(curve, table,
+                              L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                              chunk=16)
+    assert c == msm._clamp_window(3, n) == (2 if n < 8 else 3)
+    assert curve.leaves(wsum)[0].shape == (-(-256 // c), 16)
+    assert _combined(name, wsum, c) == _ref_msm(name, pts, sc)
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_window_sums_distinct_equals_general(name):
+    """On a table of distinct points with infinity rows and zero scalars,
+    the no-double kernels (distinct=True) give the same window sums as the
+    complete ones, window by window as affine points, and their Horner is
+    zkrollup_torch.ref's MSM."""
+    curve, mod = (g1.G1, g1) if name == "g1" else (g2.G2, g2)
+    table, pts, sc = _small_table(name, 24, 7, dups=False)
+    sc_t = L.to_device(L.ints_to_limbs(sc), "cpu")
+    got, c = msm.window_sums(curve, table, sc_t, c=3, distinct=True,
+                             chunk=16)
+    gen, c2 = msm.window_sums(curve, table, sc_t, c=3, distinct=False,
+                              chunk=16)
+    assert c == c2 == 3
+    assert mod.to_affine_host(got) == mod.to_affine_host(gen)
+    assert _combined(name, got, c) == _ref_msm(name, pts, sc)
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_window_sums_take_n_bits(name):
+    """Scalars below 2^130 at n_bits=130: ceil(130 / c) windows, whose
+    Horner is zkrollup_torch.ref's MSM."""
+    curve = g1.G1 if name == "g1" else g2.G2
+    table, pts, _ = _small_table(name, 17, 3)
+    rng = random.Random(9)
+    sc = [(1 << 130) - 1, 0] + [rng.randrange(1 << 130) for _ in range(15)]
+    wsum, c = msm.window_sums(curve, table,
+                              L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
+                              n_bits=130, chunk=16)
+    assert c == 3
+    assert curve.leaves(wsum)[0].shape == (-(-130 // 3), 16)
+    assert _combined(name, wsum, c) == _ref_msm(name, pts, sc)
+
+
+def _jax_window_sums(monkeypatch, jcurve, points, sc, c):
+    monkeypatch.setattr(jmsm, "_TREE_MODE", "scan")
     fn = jax.jit(partial(jmsm.window_sums, jcurve, c=c))
     return fn(points, jnp.asarray(L.ints_to_limbs(sc)))
 
 
-@pytest.mark.parametrize("tree", [
-    pytest.param(t, marks=() if t == "jacobian" else pytest.mark.slow)
-    for t in msm.TREES])
-def test_trees_match_jax(monkeypatch, tree):
-    """The port's G1 window sums with each strategy against the
-    reference's with the same strategy, window by window as affine points
-    (the two sum in other orders), on the collision-heavy input at c = 3."""
+@pytest.mark.slow
+def test_window_sums_match_jax(monkeypatch):
+    """The port's G1 window sums against the reference's chunked scan,
+    window by window as affine points (the two sum in other orders), on
+    the collision-heavy input at c = 3."""
     pts, sc = _collision_input()
     x, y, inf = g1_jax.pack_affine_host(pts)
     want, jc = _jax_window_sums(monkeypatch, g1_jax.G1,
                                 (jnp.asarray(x), jnp.asarray(y),
-                                 jnp.asarray(inf)), sc, tree, 3)
+                                 jnp.asarray(inf)), sc, 3)
     got, c = msm.window_sums(g1.G1, _port_affine(pts, g1),
-                             L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
-                             tree=tree)
+                             L.to_device(L.ints_to_limbs(sc), "cpu"), c=3)
     assert c == jc == 3
     assert g1.to_affine_host(got) == g1.to_affine_host(
         [np.asarray(a) for a in want])
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("tree", msm.TREES)
-def test_g2_trees_match_jax(monkeypatch, tree):
-    """G2 window sums with each strategy against the reference's (its G2
-    window_sums compiles for minutes on the CPU)."""
+def test_g2_window_sums_match_jax(monkeypatch):
+    """G2 window sums against the reference's (its G2 window_sums compiles
+    for minutes on the CPU)."""
     pts, sc = _g2_collision_input()
     (x0, x1), (y0, y1), inf = g2_jax.pack_affine_host(pts)
     j = jnp.asarray
     want, _ = _jax_window_sums(monkeypatch, g2_jax.G2,
                                ((j(x0), j(x1)), (j(y0), j(y1)), j(inf)),
-                               sc, tree, 3)
+                               sc, 3)
     got, _ = msm.window_sums(g2.G2, _port_affine(pts, g2),
-                             L.to_device(L.ints_to_limbs(sc), "cpu"), c=3,
-                             tree=tree)
+                             L.to_device(L.ints_to_limbs(sc), "cpu"), c=3)
     to_np = lambda p: tuple((np.asarray(c[0]), np.asarray(c[1])) for c in p)
     assert g2.to_affine_host(got) == g2.to_affine_host(to_np(want))

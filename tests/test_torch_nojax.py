@@ -80,7 +80,7 @@ def test_the_scan_covers_every_source():
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for want in ("zkrollup_torch/tools/profile_alu.py",
                  "zkrollup_torch/tools/g2_kernel_check.py",
-                 "zkrollup_torch/msm/glv.py", "chip_smoke.py",
+                 "zkrollup_torch/msm/combine.py", "chip_smoke.py",
                  "tests/test_torch_cuda.py",
                  "zkrollup_torch/chain/simulator.py",
                  "zkrollup_torch/chain/calldata.py",

@@ -96,7 +96,7 @@ def test_prove_prepared_passes_no_timings(patched):
     proof = prover.prove_prepared(prep, r=1, s=2)
     (kw,) = [c[1] for c in calls if c[0] == "prove"]
     assert "timings" not in kw
-    assert kw == {"device": "cpu", "c": 12, "glv": False, "tree": "scan"}
+    assert kw == {"device": "cpu", "c": 12}
     assert ("verify", "vk", proof) in calls
     st = prover.stats
     assert set(st.stages) == {"groth16.prove", "groth16.verify"}

@@ -269,7 +269,7 @@ ZKT_HD void jac_add_nd_lane(const PointArgs& args, int64_t i,
 }
 
 // Unified add for operands whose Z is 0 or 1 EXACTLY (affine points or
-// infinity: the leaves of the MSM's Jacobian merge tree), as
+// infinity), as
 // pallas_curve.py:_add_z01_kernel: the add path with U1 = X1, S1 = Y1,
 // U2 = X2, S2 = Y2 and Z3 = H (4 products, 2 squares); the affine double
 // (mdbl) of P through dbl_xy with Z3 = 2 Y1 (1 product, 5 squares); then

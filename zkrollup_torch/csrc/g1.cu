@@ -24,10 +24,10 @@
 // 20 warps, g1_madd_nd spills 192; each ran slower than at these bounds
 // (g1_madd 4% at 482,413 lanes, chip_smoke.py --ab).
 //
-// g1_add_z01 carries the leaf level of the msm paths' Jacobian merge tree
-// (22 windows x 2^16 lanes, 1,441,792 a launch) and the GLV proof's z01
-// adds. Over Fq, one thread a lane with both paths computed on every lane,
-// it ran 6 + 6 products a lane; over FqCall with the doubling path voted
+// g1_add_z01 adds two points with Z in {0, 1} (JacobianCurve.add_z01),
+// held at 22 windows x 2^16 lanes, 1,441,792 a launch. Over Fq, one
+// thread a lane with both paths computed on every lane, it ran 6 + 6
+// products a lane; over FqCall with the doubling path voted
 // per warp (curve.cuh:jac_add_z01_voted_lane) a warp with no P == Q lane
 // runs the 6 of the add path alone. Its launch bounds are from ptxas -v
 // as for the others (chip_smoke.py phase 1; PERF.md has the registers).

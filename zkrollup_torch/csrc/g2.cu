@@ -17,11 +17,10 @@
 // 255 and 16, jac_madd<Fq2> 255 and 20. chip_smoke.py phase 1 fails if a
 // paired kernel spills. The double went onto thread pairs next: one
 // thread computing it over Fq2 took 137 registers. The z01 add
-// (g2_add_z01, the Jacobian merge tree's leaf level: 22 windows x 2^16
-// lanes on the msm paths) went last: over Fq2 on one thread it took 255
-// registers and spilled 60 bytes; on pairs (jac_add_z01_pair_kernel) it
-// takes 168 at (128, 3) with no spill, its doubling path (the a and b2
-// tables' duplicates) voted per 16-lane warp (jac_add_z01_voted_lane).
+// (g2_add_z01, held at 22 windows x 2^16 lanes) went last: over Fq2 on
+// one thread it took 255 registers and spilled 60 bytes; on pairs
+// (jac_add_z01_pair_kernel) it takes 168 at (128, 3) with no spill, its
+// doubling path voted per 16-lane warp (jac_add_z01_voted_lane).
 // The add without the doubling path (g2_add_nd, 44 Fq products a lane)
 // went onto pairs after it: over Fq2 on one thread, jac_add_nd<Fq2>, it
 // took 255 registers and spilled 60 bytes. jac_add_nd_pair_kernel runs

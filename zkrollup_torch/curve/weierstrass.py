@@ -8,10 +8,10 @@ cuda_curve.py, which run the plain PyTorch formulas on CPU tensors. The
 field ops `mul` and `sqr` below serve those plain formulas: their product
 is the plain PyTorch Montgomery multiply on every device, so a plain point
 op launches no product kernel (its adds and subs are FieldCtx.add / sub:
-the add and sub kernels on CUDA tensors). `kmul` and `ksqr` take the mont_mul kernel wrapper
-instead, and `inv` the inversion kernel's (inv[fq], inv[fq2]); they serve
-the batched affine add of the MSM's affine merge tree (`batch_inverse`,
-`affine_add_batch`).
+the add and sub kernels on CUDA tensors). `kmul` takes the mont_mul
+kernel wrapper instead, and `inv` the inversion kernel's (inv[fq],
+inv[fq2]); they serve the batched inversion (`batch_inverse`,
+`batch_inverse_tree`).
 """
 
 from __future__ import annotations
@@ -51,10 +51,6 @@ class FqOps:
     inv = staticmethod(FQ.mont_inv)
 
     @staticmethod
-    def ksqr(a):
-        return FQ.mont_mul(a, a)
-
-    @staticmethod
     def zeros(batch, device):
         return torch.zeros(tuple(batch) + (L.N_LIMBS,), dtype=L.DTYPE,
                            device=device)
@@ -90,7 +86,6 @@ class Fq2Ops:
     # on the mont_mul and inv[fq2] kernels (their plain versions on CPU
     # tensors)
     kmul = staticmethod(fq2.mul)
-    ksqr = staticmethod(fq2.sqr)
     inv = staticmethod(fq2.inv)
 
     @staticmethod
@@ -161,40 +156,6 @@ def batch_inverse_tree(F, d):
     return inv
 
 
-def affine_add_batch(curve, p, q):
-    """Batched unified AFFINE add (weierstrass.py:affine_add_batch): p, q =
-    (x, y, inf) with inf an (m, 1) bool mask; returns the sum in the same
-    form. Every lane shares one batch_inverse, so a complete add costs ~6
-    products. The doubling denominator 2y is safe: BN254 G1 and G2 have
-    odd prime order, so y == 0 only at infinity."""
-    F = curve.F
-    x1, y1, x2, y2 = (_fmap(F, lambda a: a.contiguous(), v)
-                      for v in (p[0], p[1], q[0], q[1]))
-    i1, i2 = p[2], q[2]
-    dev = F.leaves(x1)[0].device
-    m = F.leaves(x1)[0].shape[0]
-    same_x = F.is_zero(F.sub(x2, x1))
-    same_y = F.is_zero(F.sub(y2, y1))
-    both = ~(i1 | i2)
-    dbl = same_x & same_y
-    opp = same_x & ~same_y                         # p == -q
-    # denominator: 2 y1 on the doubling path, x2 - x1 otherwise; lanes
-    # whose true denominator is 0 (infinities, p == -q) take a dummy one
-    d = F.select(dbl, F.add(y1, y1), F.sub(x2, x1))
-    d = F.select(~(both & ~opp), F.one((m,), dev), d)
-    dinv = batch_inverse(F, d)
-    xx = F.ksqr(x1)
-    num = F.select(dbl, F.add(F.add(xx, xx), xx), F.sub(y2, y1))
-    lam = F.kmul(num, dinv)
-    x3 = F.sub(F.sub(F.ksqr(lam), x1), x2)
-    y3 = F.sub(F.kmul(lam, F.sub(x1, x3)), y1)
-    x3 = F.select(i1, x2, x3)
-    y3 = F.select(i1, y2, y3)
-    x3 = F.select(i2, x1, x3)
-    y3 = F.select(i2, y1, y3)
-    return (x3, y3, (i1 & i2) | (both & opp))
-
-
 @dataclass
 class JacobianCurve:
     F: Any       # FqOps or Fq2Ops
@@ -250,8 +211,8 @@ class JacobianCurve:
 
     def add_z01(self, p, q):
         """Unified add for p and q with Z in {0, 1} exactly (affine or
-        infinity: the MSM merge tree's leaf level): the g1_add_z01 /
-        g2_add_z01 kernel, ~1.9x fewer products than `add`."""
+        infinity): the g1_add_z01 / g2_add_z01 kernel, ~1.9x fewer
+        products than `add`."""
         return cuda_curve.add_z01(self, p, q)
 
     def madd_z01(self, p, q, distinct: bool = False):

@@ -27,10 +27,10 @@ devices. The sharded functions are written once over the exchanges, and
 their results do not depend on whether shards share a device.
 
   MSM   points and scalars split into D contiguous blocks; each shard runs
-        msm.window_sums on its block (tree="scan", distinct=False: padded
-        tables hold infinity rows, and the a table duplicate points, so
-        the complete adds), then the D shards' window sums are gathered
-        and folded on the safe add (g1_add / g2_add), the count padded
+        msm.window_sums on its block (distinct=False: padded tables hold
+        infinity rows, and the a table duplicate points, so the complete
+        adds), then the D shards' window sums are gathered and folded on
+        the safe add (g1_add / g2_add), the count padded
         with infinity to a power of two, and combined once (the Horner
         kernel in sharded_msm_g1/g2; on the host in the prover).
   NTT   four-step, n = D x L, cyclic in and blocked out: each shard's
@@ -453,7 +453,7 @@ def _fold_parts(curve, parts):
 
 
 def sharded_window_sums(curve, mesh: Mesh, points_affine, scalars,
-                        c: int = 12, n_bits: int = 256, tree: str = "scan"):
+                        c: int = 12, n_bits: int = 256):
     """The window sums of the MSM of points_affine and scalars (every row,
     numpy arrays or tensors, n divisible by the mesh size): each shard runs
     msm.window_sums over its block of n / D rows (distinct=False), the D
@@ -468,7 +468,7 @@ def sharded_window_sums(curve, mesh: Mesh, points_affine, scalars,
                        _blocks(mesh, scalars, n)):
         # every block has n / D rows: one clamped window c_eff
         wsum, c_eff = msm_mod.window_sums(curve, pts, sc, c=c,
-                                          n_bits=n_bits, tree=tree)
+                                          n_bits=n_bits)
         parts.append(torch.stack(curve.leaves(wsum)))
     gathered = mesh.gather(parts)                    # (D, leaves, W, 16)
     wsum = _fold_parts(curve, curve.from_leaves(
@@ -477,23 +477,23 @@ def sharded_window_sums(curve, mesh: Mesh, points_affine, scalars,
 
 
 def sharded_msm_g1(mesh: Mesh, points_affine, scalars, c: int = 12,
-                   n_bits: int = 256, tree: str = "scan"):
+                   n_bits: int = 256):
     """points_affine (x, y, inf), scalars (n, 16) plain limbs below
     2^n_bits: numpy arrays or tensors of every row, n divisible by the
     mesh size. The sharded window sums, then one Horner launch
     (g1_horner). Returns one Jacobian point, (16,) leaves on this
     process's first device."""
     wsum, c = sharded_window_sums(G1, mesh, points_affine, scalars, c,
-                                  n_bits, tree)
+                                  n_bits)
     return G1.horner(wsum, c)
 
 
 def sharded_msm_g2(mesh: Mesh, points_affine, scalars, c: int = 12,
-                   n_bits: int = 256, tree: str = "scan"):
+                   n_bits: int = 256):
     """G2 variant of sharded_msm_g1: points ((x0, x1), (y0, y1), inf); one
     g2_horner launch."""
     wsum, c = sharded_window_sums(G2, mesh, points_affine, scalars, c,
-                                  n_bits, tree)
+                                  n_bits)
     return G2.horner(wsum, c)
 
 
@@ -539,7 +539,7 @@ def pad_rows(a: torch.Tensor, n: int) -> torch.Tensor:
 
 def distributed_prove_core(mesh: Mesh, a_cyc, b_cyc, c_cyc, zinv_mont,
                            log_m: int, g1_tables, g2_table, c: int = 12,
-                           table_groups: int = 1, tree: str = "scan"):
+                           table_groups: int = 1):
     """One distributed Groth16 compute step: the sharded quotient, then the
     five sharded MSMs' window sums. g1_tables: {name: ((x, y, inf),
     scalars)} for a, b1, c and h, h's scalars None (the quotient's output,
@@ -568,14 +568,12 @@ def distributed_prove_core(mesh: Mesh, a_cyc, b_cyc, c_cyc, zinv_mont,
         if sc is None:      # h's scalars, zero rows under the padding
             sc = pad_rows(unblock(mesh.gather(h)), pts[2].shape[0])
         if table_groups == 1:
-            results[name] = sharded_window_sums(curve, mesh, pts, sc, c,
-                                                tree=tree)
+            results[name] = sharded_window_sums(curve, mesh, pts, sc, c)
             continue
         st = streams[i % table_groups]
         with _side_streams(where[i], st):
             _record((pts, sc), st)
-            results[name] = sharded_window_sums(curve, where[i], pts, sc, c,
-                                                tree=tree)
+            results[name] = sharded_window_sums(curve, where[i], pts, sc, c)
     if table_groups > 1:
         for st in streams:
             for d, s in st.items():

@@ -14,25 +14,21 @@ Counterpart of the device branch of zkrollup/groth16/prove.py:prove:
      passes a transform)
   4. per-table scalars, duplicate key points merged (_filt_dedup), the
      merged sums folded mod r (fold kernel)
-  5. one fused 4-table G1 MSM (chunked scan, g1_madd_nd / g1_add kernels);
-     with glv=True instead four GLV MSMs over the full a, b1, c and h
-     tables (msm/glv.py:msm_glv), each with the host Horner combine
-  6. one G2 MSM over the deduplicated b2 table (g2_madd_nd / g2_add with
-     the default tree="scan"), enqueued before the host waits for the G1
-     window sums, so that the card runs it while the host combines G1
+  5. one fused 4-table G1 MSM over the deduplicated a, b1, c and h
+     tables (msm.multi_window_sums: the chunked scan, g1_madd_nd / g1_add
+     kernels)
+  6. one G2 MSM over the deduplicated b2 table (msm.window_sums: the
+     chunked scan, g2_madd_nd / g2_add kernels), enqueued before the host
+     waits for the G1 window sums, so that the card runs it while the host
+     combines G1
   7. window sums to standard form on the device (mont_mul over Fq), one
-     copy to the host each, Horner combine and blinding there
+     copy to the host each, Horner combine (msm/combine.py) and blinding
+     there
 
-`tree` picks the bucket strategy of every single-table window sum (msm.py:
-TREES): the G2 MSM, and with glv=True the four G1 MSMs. The fused G1 MSM
-of the default path stays on the chunked scan, as in the reference. The
-reference selects both with ZKROLLUP_PROVE_GLV and ZKROLLUP_MSM_TREE at
-import; the port takes them as arguments.
-
-g2_backend="host" runs step 6 on the native engine instead
-(engine.g2_msm_pip over the b2 table, ZKROLLUP_G2_BACKEND=host in the
-reference), called after the G1 MSM is enqueued, so that the host's
-Pippenger overlaps the card's G1 work; the proof bytes are the same.
+The reference can also prove with GLV G1 MSMs (ZKROLLUP_PROVE_GLV), other
+bucket strategies (ZKROLLUP_MSM_TREE) and the G2 MSM on the native engine
+(ZKROLLUP_G2_BACKEND=host); the port has none of them: each was slower on
+the H100 than the path above.
 
 mesh= runs the quotient and the five MSMs sharded over a dist/mesh.py
 Mesh (the reference's _prove_distributed): the A/B/C evaluations split
@@ -73,13 +69,12 @@ from ..fields.mont import FR, FQ
 from ..fields import cuda_mont, limbs as L
 from ..ntt import ntt
 from ..ntt.ntt import COSET_SHIFT
-from ..curve import g1 as g1_mod
 from ..curve.g1 import G1
 from ..curve.g2 import G2
 from ..dist import mesh as dmesh
 from ..msm import msm
-from ..msm.glv import (combine_multi_window_sums_host,
-                       combine_window_sums_host_g2, msm_glv)
+from ..msm.combine import (combine_multi_window_sums_host,
+                           combine_window_sums_host_g2)
 from ..spans import span
 from .keys import ProvingKey, Proof
 from .qap import to_coo
@@ -224,27 +219,6 @@ def _device_pack_g2(pk: ProvingKey, device):
     return pack
 
 
-def _device_tables_glv(pk: ProvingKey, device):
-    """The a, b1, c and h tables as they are, infinity rows and duplicate
-    points included, on `device`: the GLV MSMs take any table. Cached."""
-    cache = pk.__dict__.setdefault("_torch_tables_glv", {})
-    key = str(device)
-    if key not in cache:
-        cache[key] = {t: (L.to_device(np.asarray(x), device),
-                          L.to_device(np.asarray(y), device),
-                          _dev(np.asarray(inf), device))
-                      for t, (x, y, inf) in (("a", pk.a_g1),
-                                             ("b1", pk.b1_g1),
-                                             ("c", pk.c_g1),
-                                             ("h", pk.h_g1))}
-    return cache[key]
-
-
-def _g1_affine(jac):
-    """A Jacobian point with (16,) Montgomery leaves -> affine | None."""
-    return g1_mod.to_affine_host([c.reshape(1, L.N_LIMBS) for c in jac])[0]
-
-
 def _segsum_scalars(scalars, seg, n_seg: int) -> torch.Tensor:
     """Sum the scalars of merged duplicate points, mod r (plain form)."""
     sums = torch.zeros((n_seg, L.N_LIMBS), dtype=torch.int64,
@@ -327,9 +301,6 @@ def _check_rs(pk: ProvingKey, r1cs, r, s):
             secrets.randbelow(FR_MOD) if s is None else s)
 
 
-G2_BACKENDS = ("device", "host")
-
-
 def _host_b2(pk: ProvingKey):
     """The b2 table packed for the native engine, cached on the key."""
     tbl = pk.__dict__.get("_torch_host_b2")
@@ -373,14 +344,13 @@ def _dist_tables(pk: ProvingKey, d: int, device="cpu"):
 
 
 def _prove_distributed(pk: ProvingKey, coo, witness: List[int], r: int,
-                       s: int, mesh, c: int, table_groups: int,
-                       tree: str) -> Proof:
+                       s: int, mesh, c: int, table_groups: int) -> Proof:
     """The quotient and the five MSMs sharded over `mesh`
-    (dist/mesh.py:distributed_prove_core), the evaluations made on the
-    mesh's first device and split cyclically, the blinding on the host
-    (zkrollup/groth16/prove.py:_prove_distributed)."""
+    (dist/mesh.py:distributed_prove_core), the witness encoded and the
+    evaluations made on the mesh's first device and split cyclically, the
+    blinding on the host (zkrollup/groth16/prove.py:_prove_distributed)."""
     d, device, m = mesh.size, mesh.devices[0], coo.m
-    w_plain = L.to_device(L.ints_to_limbs(witness), device)
+    w_plain = _encode_witness(pk, witness, device)
     a_e, b_e, c_e = _abc_evals(_coo_on(coo, device), FR.to_mont(w_plain), m)
     z_coset = (pow(COSET_SHIFT, m, FR_MOD) - 1) % FR_MOD
     zinv_mont = FR.const_mont(pow(z_coset, FR_MOD - 2, FR_MOD), device)
@@ -392,8 +362,7 @@ def _prove_distributed(pk: ProvingKey, coo, witness: List[int], r: int,
         zinv_mont, m.bit_length() - 1,
         g1_tables={"a": (tbl["a"], w_sc), "b1": (tbl["b1"], w_sc),
                    "c": (tbl["c"], c_sc), "h": (tbl["h"], None)},
-        g2_table=(tbl["b2"], w_sc), c=c, table_groups=table_groups,
-        tree=tree)
+        g2_table=(tbl["b2"], w_sc), c=c, table_groups=table_groups)
     # the four G1 tables' window sums (one block size: one c) as one
     # (W, 4, 16) block, combined on the host as the single-device path does
     c1 = res["a"][1]
@@ -408,47 +377,36 @@ def _prove_distributed(pk: ProvingKey, coo, witness: List[int], r: int,
 
 def prove(pk: ProvingKey, r1cs, witness: List[int], r: Optional[int] = None,
           s: Optional[int] = None, *, device=None, c: int = 12,
-          glv: bool = False, tree: str = "scan",
-          timings: Optional[dict] = None, g2_backend: str = "device",
-          mesh=None, table_groups: int = 1) -> Proof:
+          timings: Optional[dict] = None, mesh=None,
+          table_groups: int = 1) -> Proof:
     """Groth16 proof of `witness` (full assignment, var 0 = 1) on `device`,
     or sharded over `mesh` (a dist.mesh.Mesh; then no device). r, s pin
     the blinding (same inputs, same key => same proof bytes). c is the
-    Pippenger window; proofs do not depend on it, nor on glv (the GLV G1
-    MSMs), tree (the bucket strategy, msm.TREES), g2_backend ("device", or
-    "host": the G2 MSM on the native engine, which must be built) or
-    table_groups (mesh only: the MSM tables on that many disjoint groups
-    of the mesh). If `timings` is a dict, each stage synchronises the
-    device and records its seconds (and the G2 MSM then no longer overlaps
-    the host's G1 combine). The whole proof is the span groth16.prove."""
+    Pippenger window; proofs do not depend on it, nor on table_groups
+    (mesh only: the MSM tables on that many disjoint groups of the mesh).
+    If `timings` is a dict, each stage synchronises the device and records
+    its seconds (and the G2 MSM then no longer overlaps the host's G1
+    combine). The whole proof is the span groth16.prove."""
     with span("groth16.prove"):
         r, s = _check_rs(pk, r1cs, r, s)
-        msm._check_tree(tree)
-        if g2_backend not in G2_BACKENDS:
-            raise ValueError(f"g2_backend={g2_backend!r}: must be one of "
-                             f"{G2_BACKENDS}")
-        if g2_backend == "host" and not engine.available():
-            raise RuntimeError("g2_backend='host' needs the native engine")
         if (mesh is None) == (device is None):
             raise ValueError("prove: pass device= or mesh=, one of them")
         coo = to_coo(r1cs)
         if coo.m != pk.domain_size:
             raise ValueError("key/domain mismatch")
         if mesh is not None:
-            if glv or timings is not None or g2_backend != "device":
-                raise ValueError("prove(mesh=) takes no glv, timings or "
-                                 "g2_backend")
-            return _prove_distributed(pk, coo, [w % FR_MOD for w in witness],
-                                      r, s, mesh, c, table_groups, tree)
+            if timings is not None:
+                raise ValueError("prove(mesh=) takes no timings")
+            return _prove_distributed(pk, coo, witness, r, s, mesh, c,
+                                      table_groups)
         if table_groups != 1:
             raise ValueError("table_groups needs mesh=")
         return _prove_single(pk, coo, witness, r, s, torch.device(device), c,
-                             glv, tree, timings, g2_backend)
+                             timings)
 
 
 def _prove_single(pk: ProvingKey, coo, witness: List[int], r: int, s: int,
-                  device, c: int, glv: bool, tree: str,
-                  timings: Optional[dict], g2_backend: str) -> Proof:
+                  device, c: int, timings: Optional[dict]) -> Proof:
     """prove() on one device. Its host work is in the spans
     groth16.encode (the witness to Montgomery limbs on the device;
     groth16.encode.fallback under it for the entries reduced in Python),
@@ -476,55 +434,32 @@ def _prove_single(pk: ProvingKey, coo, witness: List[int], r: int, s: int,
     h_plain = _quotient_plain(a_e, b_e, c_e, zinv_mont)
     stage("evals_quotient")
 
-    if glv:
-        # four GLV MSMs over the full tables, each combined on the host
-        # (prove.py:448-458); the scalars go to the host for the
-        # decomposition
-        tbl = _device_tables_glv(pk, device)
-        w_np = w_plain.cpu().numpy().astype(np.uint32)
-        h_np = h_plain[:m - 1].cpu().numpy().astype(np.uint32)
-        g1_pts = [_g1_affine(msm_glv(tbl[t], sc, c=c, tree=tree))
-                  for t, sc in (("a", w_np), ("b1", w_np),
-                                ("c", w_np[pk.n_public:]), ("h", h_np))]
-    else:
-        pack = _device_pack_g1(pk, device)
-        sc_cat = _scalars_cat(w_plain, h_plain, pack)
-        with span("groth16.msm_g1"):
-            wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
-                                              pack["bounds"], distinct=True)
-        wsum1_host = _to_host_standard(G1, wsum1)
+    pack = _device_pack_g1(pk, device)
+    sc_cat = _scalars_cat(w_plain, h_plain, pack)
+    with span("groth16.msm_g1"):
+        wsum1, c1 = msm.multi_window_sums(G1, pack["points"], sc_cat, c,
+                                          pack["bounds"], distinct=True)
+    wsum1_host = _to_host_standard(G1, wsum1)
     stage("msm_g1")
 
-    if g2_backend == "host":
-        # the native engine's Pippenger runs here, while the card works
-        # through the G1 MSM enqueued above (zkrollup/groth16/prove.py:
-        # 495-500)
-        pi_b = engine.g2_msm_pip(
-            _host_b2(pk), engine.ints_to_fr_bytes(
-                [w % FR_MOD for w in witness]), pk.n_vars)
-    else:
-        # the G2 MSM is enqueued before the host waits for the G1 window
-        # sums (zkrollup/groth16/prove.py:460-486): without timings the
-        # card runs it while the host combines G1
-        g2p = _device_pack_g2(pk, device)
-        sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]),
-                              g2p["seg"], g2p["n_seg"])
-        with span("groth16.msm_g2"):
-            wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2,
-                                        c=min(c, 12), distinct=True,
-                                        tree=tree)
-        wsum2_host = _to_host_standard(G2, wsum2)
+    # the G2 MSM is enqueued before the host waits for the G1 window sums
+    # (zkrollup/groth16/prove.py:460-486): without timings the card runs it
+    # while the host combines G1
+    g2p = _device_pack_g2(pk, device)
+    sc2 = _segsum_scalars(w_plain.index_select(0, g2p["idx"]), g2p["seg"],
+                          g2p["n_seg"])
+    with span("groth16.msm_g2"):
+        wsum2, c2 = msm.window_sums(G2, g2p["points"], sc2, c=min(c, 12),
+                                    distinct=True)
+    wsum2_host = _to_host_standard(G2, wsum2)
     stage("msm_g2")
 
-    if not glv:
-        wsum1 = wsum1_host()
-        with span("groth16.combine_g1"):
-            g1_pts = combine_multi_window_sums_host(wsum1, c1)
-    pi_a, pi_b1, pi_c, pi_h = g1_pts
-    if g2_backend != "host":
-        wsum2 = wsum2_host()
-        with span("groth16.combine_g2"):
-            pi_b = combine_window_sums_host_g2(wsum2, c2)
+    wsum1 = wsum1_host()
+    with span("groth16.combine_g1"):
+        pi_a, pi_b1, pi_c, pi_h = combine_multi_window_sums_host(wsum1, c1)
+    wsum2 = wsum2_host()
+    with span("groth16.combine_g2"):
+        pi_b = combine_window_sums_host_g2(wsum2, c2)
     proof = _blind_combine(pk, pi_a, pi_b, pi_b1, pi_c, pi_h, r, s)
     stage("combine")
     return proof

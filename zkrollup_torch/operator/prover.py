@@ -137,21 +137,17 @@ def _self_verify(vk, proof: Proof, public_signals: List[int]) -> None:
 class TxProver:
     """BatchProcessTx(batch, depth) prover with cached keys, proving on
     `device` with Pippenger window `c` (backend "device"), or on the native
-    engine (backend "host"); glv and tree go to groth16.prove (the GLV G1
-    MSMs, the bucket strategy)."""
+    engine (backend "host")."""
 
     def __init__(self, cfg: RollupConfig, key_path: Optional[str] = None,
                  setup_seed: Optional[bytes] = None, *, device="cuda",
-                 backend: str = "device", c: int = 12, glv: bool = False,
-                 tree: str = "scan"):
+                 backend: str = "device", c: int = 12):
         self.cfg = cfg
         self.key_path = key_path
         self.setup_seed = setup_seed
         self.device = device
         self.backend = _check_backend(backend)
         self.c = c
-        self.glv = glv
-        self.tree = tree
         self.pk: Optional[ProvingKey] = None
         self.stats = ProveStats()
         self._r1cs = None
@@ -204,8 +200,7 @@ class TxProver:
                                    r=r, s=s)
             else:
                 proof = prove(pk, self.structure_r1cs(), prep.witness, r=r,
-                              s=s, device=self.device, c=self.c,
-                              glv=self.glv, tree=self.tree)
+                              s=s, device=self.device, c=self.c)
             _self_verify(pk.vk, proof, prep.public_signals)
         self.stats.take(proof_trace.spans())
         return proof

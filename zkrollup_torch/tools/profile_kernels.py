@@ -10,7 +10,6 @@ steady calls, each ended by a device synchronise:
 
   mont_mul[fq] over P.x, Q.x, in M mul/s
   g1_add of P and Q, in M add/s (and 34 Fq products an add)
-  the merge tree's level 0: strided halves of P, one g1_add, two selects
   a gather of x, y and z by a permutation (index_select)
   a scatter of the n rows of x, y and z into 2^14 buckets (index_put_)
   a stable sort of (13, n / 8) keys below 1024, the indices its payload
@@ -51,17 +50,6 @@ def inputs(n: int, dev):
     return P, Q
 
 
-def level0(P):
-    """The run-merge tree's level-0 pattern: strided halves (copied
-    contiguous, as the tree does), one add, two selects."""
-    from ..curve.g1 import G1
-    a = tuple(t[0::2].contiguous() for t in P)
-    b = tuple(t[1::2].contiguous() for t in P)
-    br = G1.add(a, b)
-    m = (torch.arange(a[0].shape[0], device=a[0].device) & 1).bool()[:, None]
-    return G1.select(m, br, a), G1.select(m, br, b)
-
-
 def check_scatter(rows, bidx, buckets, n_buckets: int) -> int:
     """Raise unless every limb of each bucket sent rows equals that limb
     of one of them and each other bucket is zero. Returns the count of
@@ -96,7 +84,6 @@ def run(device, log_n: int = 20, reps: int = 5) -> dict:
     rng = np.random.RandomState(0)
     lanes = torch.from_numpy(np.sort(rng.choice(n, min(SAMPLE, n),
                                                 replace=False))).to(dev)
-    half = lanes[lanes < n // 2]
     cpu = lambda p: tuple(a.index_select(0, lanes).cpu() for a in p)
     rows = []
 
@@ -116,17 +103,6 @@ def run(device, log_n: int = 20, reps: int = 5) -> dict:
     if any(not torch.equal(a.index_select(0, lanes).cpu(), b)
            for a, b in zip(add, G1.add(cpu(P), cpu(Q)))):
         raise AssertionError("g1_add differs from its plain version")
-    lv, rv = stage(f"tree level0 (halves+add+2 selects) 2^{log_n - 1}",
-                   lambda: level0(P),
-                   lambda t: f"{n / 2 / t / 1e6:.2f} M add/s incl. overhead")
-    ev = tuple(a.index_select(0, 2 * half).cpu() for a in P)
-    od = tuple(a.index_select(0, 2 * half + 1).cpu() for a in P)
-    br = G1.add(ev, od)
-    odd = (half.cpu() & 1).bool()[:, None]
-    want_l, want_r = G1.select(odd, br, ev), G1.select(odd, br, od)
-    if any(not torch.equal(a.index_select(0, half).cpu(), b)
-           for a, b in zip(lv + rv, want_l + want_r)):
-        raise AssertionError("tree level0 differs from its plain version")
 
     perm = torch.from_numpy(rng.permutation(n)).to(dev)
     moved = 3 * n * 16 * 4

@@ -1,17 +1,17 @@
 """The single-table MSM's stages, timed one at a time.
 
     python -m zkrollup_torch.tools.profile_msm [--log-n 17] [-c 12]
-        [--tree scan|scan1|affine|jacobian] [--device cuda]
+        [--device cuda]
 
-The counterpart of tools/profile_msm.py (P_LOG_N, P_C and
-ZKROLLUP_MSM_TREE there). n = 2^log_n points, 64 distinct points of G1
-tiled (duplicates: msm() with distinct=False), seeded scalars below r.
+The counterpart of tools/profile_msm.py (P_LOG_N and P_C there). n =
+2^log_n points, 64 distinct points of G1 tiled (duplicates: msm() with
+distinct=False), seeded scalars below r.
 Each stage is reported as its first call and the mean of three steady
 calls, each ended by a device synchronise:
 
   (b) window_digits
   (c) the batched row sort (stable) and the flat gather of x, y and inf
-  (d) the window sums of `tree` (sort, buckets or scan, reduction)
+  (d) the window sums (the chunked scan: sort, scan, reduction)
   (f) the full msm(): the window sums and the Horner combine
 
 and points/s of (f). (f)'s result is held against the native engine's
@@ -43,15 +43,13 @@ def base_points(n: int, seed: int = 1234, count: int = 64):
             np.tile(inf, (reps, 1))[:n])
 
 
-def run(device, log_n: int = 17, c: int = 12, tree: str = "scan",
-        reps: int = 3) -> dict:
+def run(device, log_n: int = 17, c: int = 12, reps: int = 3) -> dict:
     """{"rows": [(stage, first s, steady s)], "points_per_s", "msm"
     (affine), "n", "c"}; raises unless (f) equals the engine."""
     from ..curve.g1 import G1
     from ..msm import msm
 
     dev = common.device(str(device))
-    msm._check_tree(tree)
     n = 1 << log_n
     host = base_points(n)
     pa = common.on_device(host, dev)
@@ -74,10 +72,10 @@ def run(device, log_n: int = 17, c: int = 12, tree: str = "scan",
         idx = perm.reshape(-1)
         return tuple(a.index_select(0, idx) for a in pa)
     stage("(c) batched sort + flat gather", sort_gather)
-    stage(f"(d) window sums ({tree})",
-          lambda: msm._flat_window_sums(G1, digits, pa[:2], pa[2], c,
-                                        False, tree))
-    res = stage("(f) full msm", lambda: msm.msm(G1, pa, sc, c=c, tree=tree))
+    stage("(d) window sums",
+          lambda: msm._flat_window_sums_scan2(G1, digits, pa[:2], pa[2], c,
+                                              1, False))
+    res = stage("(f) full msm", lambda: msm.msm(G1, pa, sc, c=c))
     got = common.jacobian_affine(res)
     if got != common.engine_msm(host, sc_np):
         raise AssertionError("profile_msm: msm() differs from the native "
@@ -94,17 +92,15 @@ def lines(out: dict) -> list:
 
 
 def main(argv=None) -> int:
-    from ..msm.msm import TREES
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-n", type=int, default=17)
     ap.add_argument("-c", type=int, default=12)
-    ap.add_argument("--tree", choices=TREES, default="scan")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = common.device(args.device)
-    out = run(dev, args.log_n, args.c, args.tree)
-    print(f"device: {common.device_name(dev)}  tree={args.tree} "
-          f"c={out['c']} n=2^{args.log_n}; msm() equals the native engine")
+    out = run(dev, args.log_n, args.c)
+    print(f"device: {common.device_name(dev)}  c={out['c']} "
+          f"n=2^{args.log_n}; msm() equals the native engine")
     for line in lines(out):
         print(line)
     return 0

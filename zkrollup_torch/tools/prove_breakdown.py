@@ -34,7 +34,7 @@ def run(pk, r1cs, witness, device, best_of: int = 2, full: int = 3) -> dict:
     from ..groth16 import prove as P
     from ..groth16.qap import to_coo
     from ..msm import msm
-    from ..msm.glv import (combine_multi_window_sums_host,
+    from ..msm.combine import (combine_multi_window_sums_host,
                            combine_window_sums_host_g2)
     from ..ref.bn254 import R as FR_MOD
 
