@@ -434,6 +434,25 @@ def pack_g1_table_mont(table) -> tuple:
     return (_limbs_to_bytes(x), _limbs_to_bytes(y), infb)
 
 
+def pack_g1_points_mont(points) -> tuple:
+    """Affine G1 points as ints ((x, y), or None at infinity) -> the raw
+    Montgomery byte planes (xs, ys, infs) of g1_msm_pip: each coordinate
+    x * 2^256 mod q, 32 bytes little-endian; an infinity entry is zero
+    with its infs byte set."""
+    from ..ref.bn254 import Q
+    zero = bytes(32)
+    xs, ys, infs = [], [], bytearray(len(points))
+    for i, p in enumerate(points):
+        if p is None:
+            xs.append(zero)
+            ys.append(zero)
+            infs[i] = 1
+        else:
+            xs.append(((p[0] << 256) % Q).to_bytes(32, "little"))
+            ys.append(((p[1] << 256) % Q).to_bytes(32, "little"))
+    return b"".join(xs), b"".join(ys), bytes(infs)
+
+
 def pack_g2_table_mont(table) -> tuple:
     import numpy as np
     (x0, x1), (y0, y1), inf = table
